@@ -130,10 +130,13 @@ def train_phase(h: VocoderConfig, dev: torch.device, steps: int = 4) -> GANTrain
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for batch in batches:
+        launches = mel_kernel.launch_counts["mel_spectrogram"]
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
+        check(mel_kernel.launch_counts["mel_spectrogram"] == launches + 2,
+              "the mel kernel launched twice in the step")
         metrics = {k: float(v) for k, v in metrics.items()}
         check(all(np.isfinite(v) for v in metrics.values()), f"finite losses {metrics}")
         print("train step", trainer.step, json.dumps(metrics), f"{step_ms[-1]:.1f} ms",

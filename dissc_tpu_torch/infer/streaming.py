@@ -42,30 +42,26 @@ def receptive_field_frames(h: VocoderConfig) -> int:
     return math.ceil(rf_samples / hop)
 
 
+# windows kept in flight on the device before the oldest is copied to the
+# host, so the copy of one chunk overlaps the computation of the next
+IN_FLIGHT = 2
+
+
 class StreamingVocoder:
     """Chunked synthesis through ``model`` (a ``CodeGenerator`` on its
-    device), numerically matching the monolithic forward.
-
-    ``pipeline_depth`` windows are kept in flight on the device before the
-    oldest is copied to the host, so the copy of one chunk overlaps the
-    computation of the next.
+    device), numerically matching the monolithic forward.  The context is
+    the receptive field rounded up to a multiple of 8 frames.
     """
 
-    def __init__(self, model: CodeGenerator, chunk_frames: int = 512,
-                 context_frames: Optional[int] = None, pipeline_depth: int = 2):
+    def __init__(self, model: CodeGenerator, chunk_frames: int = 512):
         self.model = model
         self.h = model.h
         self.device = next(model.parameters()).device
-        self.pipeline_depth = max(1, pipeline_depth)
         self.hop = int(np.prod(self.h.upsample_rates))
-        rf = receptive_field_frames(self.h)
-        self.context = context_frames if context_frames is not None else ((rf + 7) // 8) * 8
-        if self.context < rf:
-            raise ValueError(f"context_frames={self.context} < receptive field {rf} frames: "
-                             "chunk boundaries would be audible")
+        self.context = ((receptive_field_frames(self.h) + 7) // 8) * 8
         self.chunk = chunk_frames
         if self.chunk < self.context:
-            raise ValueError("chunk_frames must be >= context_frames")
+            raise ValueError(f"chunk_frames={chunk_frames} < context {self.context} frames")
 
     @torch.inference_mode()
     def _dispatch(self, code_w: np.ndarray, f0_w: Optional[np.ndarray],
@@ -127,7 +123,7 @@ class StreamingVocoder:
         for (lo, hi, o_lo, o_hi, y_lo, y_hi) in plan:
             y_dev = self._dispatch(code[lo:hi], None if f0 is None else f0[lo * r: hi * r], spkr)
             pending.append(((o_lo, o_hi, y_lo, y_hi), y_dev))
-            if len(pending) > self.pipeline_depth:
+            if len(pending) > IN_FLIGHT:
                 flush_one()
         while pending:
             flush_one()

@@ -2,8 +2,8 @@
 
 Behaviour of the JAX engine, on the card:
 
-* weight norm is folded once at construction (the reference's
-  ``remove_weight_norm``, ``sr/inference.py:160``);
+* weight norm is folded once at construction unless the state is folded
+  already (the reference's ``remove_weight_norm``, ``sr/inference.py:160``);
 * utterances are padded to frame buckets ``(64 ... 2048)`` by
   edge-replicating the last code and zero-filling f0; outputs are cut to
   the true length.  With the generator's receptive field the padding
@@ -56,11 +56,10 @@ class VocoderEngine:
 
     def __init__(self, h: VocoderConfig, gen_state: Dict[str, torch.Tensor],
                  frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
-                 stream_long: bool = True, stream_chunk: int = 512,
-                 exact_lengths: bool = False, fold_weights: bool = True,
+                 stream_chunk: int = 512, exact_lengths: bool = False,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        if fold_weights and not h.folded_weights:
+        if not h.folded_weights:
             gen_state = fold_weight_norm(gen_state)
             h = dataclasses.replace(h, folded_weights=True)
         self.h = h
@@ -68,7 +67,6 @@ class VocoderEngine:
         self.model.load_state_dict(gen_state)
         self.model.to(self.device).eval()
         self.frame_buckets = tuple(frame_buckets)
-        self.stream_long = stream_long
         self.stream_chunk = stream_chunk
         self.exact_lengths = exact_lengths
         self._streamer: Optional[StreamingVocoder] = None
@@ -138,7 +136,7 @@ class VocoderEngine:
         rtfs = []
         long_idx = []
         for i, it in enumerate(items):
-            if self.stream_long and len(it["code"]) > self.frame_buckets[-1]:
+            if len(it["code"]) > self.frame_buckets[-1]:
                 long_idx.append(i)
             else:
                 cap = (len(it["code"]) if self.exact_lengths

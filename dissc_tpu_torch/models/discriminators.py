@@ -23,14 +23,14 @@ FeatureMaps = List[List[torch.Tensor]]
 class DiscriminatorP(nn.Module):
     """Period discriminator: reflect-pad to a multiple of the period, fold
     to ``[B, 1, T/p, p]`` and run ``(k, 1)`` convs along T/p
-    (reference ``sr/models.py:228-260``)."""
+    (reference ``sr/models.py:228-260``).  Weight norm on every conv: no
+    caller of the reference turns on its spectral-norm variant."""
 
     def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
-                 use_spectral_norm: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.period = period
-        norm = "spectral" if use_spectral_norm else "weight"
+        norm = "weight"
         pad = same_padding(5, 1)
         chans = [1, 32, 128, 512, 1024]
         self.convs = nn.ModuleList(

@@ -92,7 +92,7 @@ class Generator(nn.Module):
         self.conv_post = Conv1d(ch, 1, 7, padding=3, norm=wn, kernel_init=hifigan_init(),
                                 generator=generator)
 
-    def generate(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv_pre(x)
         for i, up in enumerate(self.ups):
             x = up(leaky_relu(x))
@@ -105,9 +105,6 @@ class Generator(nn.Module):
         # F.leaky_relu(x) with torch's default (sr/models.py:110)
         x = leaky_relu(x, 0.01)
         return torch.tanh(self.conv_post(x))[:, 0]
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.generate(x)
 
 
 class CodeGenerator(Generator):
@@ -144,4 +141,4 @@ class CodeGenerator(Generator):
 
     def forward(self, code: torch.Tensor, f0: Optional[torch.Tensor] = None,
                 spkr: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.generate(self.assemble(code, f0, spkr).transpose(1, 2))
+        return super().forward(self.assemble(code, f0, spkr).transpose(1, 2))

@@ -97,13 +97,6 @@ class GANTrainer:
         self.mel_fn = pick_mel_fn(h, self.device)
         self.step = 0
 
-    def load_state_dicts(self, gen: Optional[dict] = None, mpd: Optional[dict] = None,
-                         msd: Optional[dict] = None) -> None:
-        """Load weights into the models in place (the optimizers keep them)."""
-        for module, sd in ((self.gen, gen), (self.mpd, mpd), (self.msd, msd)):
-            if sd is not None:
-                module.load_state_dict(sd)
-
     def _inputs(self, batch: Batch):
         get = lambda k: None if batch.get(k) is None else batch[k].to(self.device)
         return get("code"), get("f0") if self.h.f0 else None, get("spkr"), get("audio")

@@ -62,8 +62,10 @@ def runs():
     train_step, val_step = make_gan_train_step(jh, gen_tx, disc_tx)
 
     trainer = GANTrainer(th, device="cpu")
-    trainer.load_state_dicts(generator_state_dict(gen_p, th), mpd_state_dict(mpd_p),
-                             msd_state_dict(msd_p, spec))
+    # load_state_dict copies in place, so the optimizers keep the parameters
+    trainer.gen.load_state_dict(generator_state_dict(gen_p, th))
+    trainer.mpd.load_state_dict(mpd_state_dict(mpd_p))
+    trainer.msd.load_state_dict(msd_state_dict(msd_p, spec))
     jax_metrics, port_metrics, gen_after_1 = [], [], None
     for i, batch in enumerate(_batches()):
         state, m = train_step(state, {k: jnp.asarray(v) for k, v in batch.items()})

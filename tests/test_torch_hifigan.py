@@ -46,9 +46,9 @@ def _inputs(r, T=6, seed=1):
             np.array([[3], [150]], np.int32))
 
 
-@pytest.mark.parametrize("r", [1, 2])
-def test_code_generator_matches_jax(r):
-    jh, th = JaxConfig(**SMALL), VocoderConfig(**SMALL)
+@pytest.mark.parametrize("r,resblock", [(1, "1"), (2, "1"), (1, "2")])
+def test_code_generator_matches_jax(r, resblock):
+    jh, th = JaxConfig(**SMALL, resblock=resblock), VocoderConfig(**SMALL, resblock=resblock)
     params = random_generator_params(jh)
     code, f0, spkr = _inputs(r)
     ref = np.asarray(jax.jit(JaxCodeGenerator(jh).apply)(
@@ -74,6 +74,26 @@ def test_folded_generator_equals_unfolded():
         a = model(code.long(), f0, spkr.long())
         b = folded(code.long(), f0, spkr.long())
     torch.testing.assert_close(b, a, atol=1e-6, rtol=0)
+
+
+def test_jax_folded_tree_loads_into_folded_generator():
+    """A tree folded by the JAX package (``kernel`` leaves) carries into a
+    port generator built with ``folded_weights`` and equals the port's own
+    fold of the unfolded tree."""
+    from dissc_tpu.models.layers import fold_weight_norm as jax_fold
+
+    params = random_generator_params(JaxConfig(**SMALL), seed=6)
+    th = VocoderConfig(**SMALL)
+    folded_h = VocoderConfig(**SMALL, folded_weights=True)
+    from_jax_fold = CodeGenerator(folded_h)
+    from_jax_fold.load_state_dict(generator_state_dict(jax.device_get(jax_fold(params)), th))
+    port_fold = CodeGenerator(folded_h)
+    port_fold.load_state_dict(fold_weight_norm(generator_state_dict(params, th)))
+    code, f0, spkr = (torch.from_numpy(a) for a in _inputs(1))
+    with torch.no_grad():
+        a = from_jax_fold(code.long(), f0, spkr.long())
+        b = port_fold(code.long(), f0, spkr.long())
+    torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 
 
 def test_state_dict_keys_follow_reference_layout():

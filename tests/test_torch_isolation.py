@@ -20,7 +20,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package(tmp_path):
     assert "dissc_tpu_torch.kernels.mel_kernel" in modules
     code = (
         "import importlib, sys\n"
-        f"for name in {modules!r} + ['chip_smoke']:\n"
+        f"for name in {modules!r} + ['chip_smoke', 'chip_profile']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dissc_tpu'))\n"
@@ -56,6 +56,12 @@ def test_config_refuses_knobs_that_change_the_numbers(knob):
         VocoderConfig(**knob)
 
 
-def test_config_accepts_tpu_lowering_knobs():
+def test_config_accepts_tpu_lowering_knobs_and_reads_reference_json(tmp_path):
+    from dissc_tpu_torch.core.config import load_config
+
     h = VocoderConfig(mrf_pack_max_ch=0, disc_s2d=True, msd_fused_gstep=True, dp_axis="x")
     assert h.disc_s2d and h.mrf_pack_max_ch == 0
+    path = tmp_path / "config.json"
+    path.write_text('{"upsample_initial_channel": 256, "f0_feats": true, "unknown": 1}')
+    assert load_config(str(path)).upsample_initial_channel == 256
+    assert VocoderConfig.from_json(str(path)).upsample_initial_channel == 256

@@ -67,6 +67,22 @@ def test_streamed_item_equals_monolithic_forward():
     assert np.abs(streamed[0] - mono).max() < 1e-5
 
 
+def test_checkpoint_written_by_the_port_reads_in_the_jax_package(tmp_path):
+    from dissc_tpu.train.checkpoints import load_checkpoint as jax_load
+    from dissc_tpu.train.checkpoints import scan_checkpoint as jax_scan
+    from dissc_tpu_torch.train.checkpoints import save_checkpoint as port_save
+    from dissc_tpu_torch.train.checkpoints import step_checkpoint_name
+
+    tree = {"generator": {"conv_pre": {"bias": torch.arange(3.0)}}, "steps": 7}
+    for step in (2, 10):
+        port_save(os.path.join(tmp_path, step_checkpoint_name("do_", step)), tree)
+    path = jax_scan(str(tmp_path), "do_")
+    assert path.endswith("do_00000010")
+    back = jax_load(path)
+    assert back["steps"] == 7
+    np.testing.assert_array_equal(back["generator"]["conv_pre"]["bias"], [0.0, 1.0, 2.0])
+
+
 def test_from_checkpoint_reads_jax_written_files(tmp_path):
     """A g_ pickle and config.json written by the JAX package load into an
     engine that equals one built from the same tree directly (which the
