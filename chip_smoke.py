@@ -11,8 +11,9 @@ drawn from a fixed seed:
    cuDNN, and the build of every CUDA kernel from ``dissc_tpu_torch/csrc``;
 2. kernels: each kernel against its plain PyTorch version on the card
    (forward and gradient, stated tolerances) and timed beside it;
-3. train: GAN train steps and one validation step through ``GANTrainer``,
-   with the launch counters set to 0 just before and read just after;
+3. train: two steps of a small config held against the CPU path, then
+   GAN train steps and one validation step through ``GANTrainer`` at full
+   width, with the launch counters set to 0 just before and read just after;
 4. serve: ``VocoderEngine`` built from the trained generator answers
    requests across the frame buckets plus one that streams, checked
    against exact-length and monolithic forwards and against the CPU.
@@ -123,6 +124,30 @@ def synthetic_batch(h: VocoderConfig, g: torch.Generator, dev: torch.device) -> 
             "audio": (torch.randn((b, h.segment_size), generator=g) * 0.3).to(dev)}
 
 
+def train_reference_check(dev: torch.device) -> None:
+    """Two GAN steps of a small config on the card against the same steps
+    on the CPU (plain mel chain, CPU convolutions), from the same seed.
+    Losses rtol 1e-3: AdamW's first update is about lr * sign(grad), so a
+    gradient entry at float-noise level can move a weight by up to 2 lr."""
+    h = VocoderConfig(upsample_initial_channel=32, embedding_dim=8, model_in_dim=17,
+                      segment_size=1280, batch_size=2, mpd_periods=(2, 3), msd_scales=2)
+    g = torch.Generator().manual_seed(5)
+    batches = [synthetic_batch(h, g, torch.device("cpu")) for _ in range(2)]
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        trainer = GANTrainer(h, device=d, seed=h.seed)
+        runs.append([{k: float(v) for k, v in trainer.train_step(b).items()}
+                     for b in batches])
+    worst = 0.0
+    for cpu_m, card_m in zip(*runs):
+        for k, ref in cpu_m.items():
+            worst = max(worst, abs(card_m[k] - ref) / max(abs(ref), 1e-6))
+            check(abs(card_m[k] - ref) <= 1e-3 * abs(ref) + 1e-5,
+                  f"{k}: card {card_m[k]} vs CPU {ref}")
+    print("train reference: 2 small GAN steps, card vs CPU, worst relative loss error",
+          worst, flush=True)
+
+
 def train_phase(h: VocoderConfig, dev: torch.device, steps: int = 4) -> GANTrainer:
     trainer = GANTrainer(h, device=dev, seed=h.seed)
     g = torch.Generator().manual_seed(1)
@@ -216,6 +241,7 @@ def main() -> int:
     dev = torch.device("cuda")
     h = VocoderConfig()
     mel_row = kernel_phase(h, dev)
+    train_reference_check(dev)
 
     mel_kernel.reset_launch_counts()
     steps = 4
