@@ -14,7 +14,6 @@ import os
 import pickle
 from typing import Any, Optional
 
-import numpy as np
 import torch
 
 

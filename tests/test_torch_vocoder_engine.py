@@ -8,7 +8,6 @@ twice it, and one item past the last bucket that streams in chunks of
 import json
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
