@@ -24,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 from chip_smoke import synthetic_batch
 from dissc_tpu_torch.core.config import VocoderConfig
 from dissc_tpu_torch.infer.vocoder import VocoderEngine
-from dissc_tpu_torch.kernels import build
+from dissc_tpu_torch.kernels import mel_kernel
 from dissc_tpu_torch.train.vocoder_trainer import GANTrainer
 
 CATEGORIES = [  # first match wins, on the lower-cased kernel name
@@ -95,7 +95,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    build.build_all(["mel_kernel"])
+    mel_kernel._launcher()  # build K1 before the timed windows
     dev = torch.device("cuda")
     h = VocoderConfig()
     trainer = GANTrainer(h, device=dev, seed=h.seed)

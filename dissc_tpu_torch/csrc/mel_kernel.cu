@@ -8,11 +8,14 @@
 //   out[b, m, f] = log(max(mel, 1e-5)).
 // The magnitudes live only in shared memory.
 //
-// Bound: fp32 operations.  At the vocoder's train shape (64 x 8960, n_fft
-// 1024, hop 256) a call does ~4.9 GFLOP on ~7.4 MB, ~660 FLOP/byte, far
-// above the card's fp32 ridge.  So the two DFT products run as one SIMT
-// matrix product C[frames, n_fft] = frames[frames, n_fft] x basis[n_fft,
-// n_fft] in IEEE fp32 FMA (no TF32), tiled for reuse:
+// Bound: fp32 operations.  This design computes the DFT densely: at the
+// vocoder's train shape (64 x 8960, n_fft 1024, hop 256) it does ~4.7
+// GFLOP on ~7.4 MB (bases included), ~640 FLOP/byte, far above the card's
+// fp32 ridge.  (A real FFT would need ~70x fewer operations; the least
+// time of the function is in chip_smoke.py's mel_bound_ms.)  So the two
+// DFT products run as one SIMT matrix product C[frames, n_fft] =
+// frames[frames, n_fft] x basis[n_fft, n_fft] in IEEE fp32 FMA (no TF32),
+// tiled for reuse:
 //   * a block owns BM frames x BN basis columns; a thread owns an 8 x 8
 //     register tile, so each pair of 16-byte shared loads feeds 64 FMAs;
 //   * frames are gathered straight from the waveform into shared memory
@@ -26,7 +29,7 @@
 //   * each block projects its BN/2 frequencies onto the mel basis into a
 //     partial sum; a second, small kernel adds the n_fft/BN partials in a
 //     fixed order (deterministic) and takes the log.
-// Tensor-core (3xTF32) products are later work.
+// An FFT-based body is later work.
 #include <cuda_runtime.h>
 #include <math.h>
 

@@ -40,10 +40,8 @@ DEFAULT_FRAME_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    return ((n + 255) // 256) * 256
+    """The smallest bucket that holds ``n`` frames (longer items stream)."""
+    return next(b for b in buckets if n <= b)
 
 
 class VocoderEngine:

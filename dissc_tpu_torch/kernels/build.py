@@ -5,8 +5,7 @@ with a plain C interface and loaded with ``ctypes``.  The library lands in
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, so a changed source is rebuilt and an unchanged one
 is reused.  Nothing is built when a module is imported: a kernel's
-wrapper calls :func:`load` at its first launch, and :func:`build_all`
-starts one ``nvcc`` per source at once.
+wrapper calls :func:`load` at its first launch.
 """
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -38,48 +37,22 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def _start(name: str):
-    """Start ``nvcc`` for ``csrc/<name>.cu`` unless its library is built;
-    returns (target, process or None)."""
-    target = _target(name)
-    if target.exists():
-        return target, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return target, (proc, tmp)
-
-
-def _finish(name: str, target: Path, pending) -> None:
-    if pending is None:
-        return
-    proc, tmp = pending
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log.decode(errors='replace')}")
-    os.replace(tmp, target)
-
-
-def build_all(names: Iterable[str]) -> None:
-    """Compile every named source in parallel (one ``nvcc`` each)."""
-    started = [(n, *_start(n)) for n in names]
-    for name, target, pending in started:
-        _finish(name, target, pending)
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        target, pending = _start(name)
-        _finish(name, target, pending)
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        target = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+        if not target.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            if done.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n"
+                                   f"{done.stdout.decode(errors='replace')}")
+            os.replace(tmp, target)
         lib = ctypes.CDLL(str(target))
         _loaded[name] = lib
     return lib

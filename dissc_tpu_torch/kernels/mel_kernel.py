@@ -6,8 +6,9 @@ Replaces ``dissc_tpu/kernels/mel_kernel.py::mel_spectrogram_pallas``
 ``mel_spectrogram_pallas_grad``.  Source: ``csrc/mel_kernel.cu``, built
 by ``nvcc`` for ``sm_90a`` at first launch and bound with ``ctypes``.
 
-What bounds it on an H100: fp32 operations (~660 FLOP per byte moved at
-the train shape; see the source for what the design does about it).
+What bounds it on an H100: fp32 operations.  Its dense DFT does ~640 FLOP
+per byte moved at the train shape, ~70x the operations of a real FFT; see
+the source for what the design does about it.
 
 Dispatch is by the tensor's device, never by failure: a CPU tensor goes
 to the plain chain :func:`dissc_tpu_torch.audio.mel.mel_spectrogram`; a

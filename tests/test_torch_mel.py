@@ -99,7 +99,9 @@ def test_autograd_fn_value_and_grad_match_jax_custom_vjp():
     vt = mel_spectrogram_grad(yt).abs().mean()
     vt.backward()
     np.testing.assert_allclose(float(vt.detach()), float(vj), rtol=1e-5)
-    # gradient tolerance of tests/test_kernels.py:45 (entries are ~1e-4)
+    # gradient tolerance of tests/test_kernels.py:45 (entries are ~1e-4),
+    # which is meaningful only while the gradient is far above it
+    assert np.abs(np.asarray(gj)).max() > 100 * 1e-6
     np.testing.assert_allclose(yt.grad.numpy(), np.asarray(gj), atol=1e-6)
 
 
