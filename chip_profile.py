@@ -3,6 +3,7 @@
     python3 chip_profile.py
 
 At the full ``VocoderConfig()`` width, with weights from a fixed seed:
+K1's own device time per launch at the shapes ``chip_smoke.py`` times;
 two warm-up GAN train steps at batch 64 x 8960 samples, then two steps
 under ``torch.profiler``; then one serving batch of 8 utterances x 1024
 frames (the shape of ``bench.py``'s vocoder batch) under the profiler.
@@ -21,14 +22,14 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import synthetic_batch
+from chip_smoke import kernel_cases, mel_args, synthetic_batch
 from dissc_tpu_torch.core.config import VocoderConfig
 from dissc_tpu_torch.infer.vocoder import VocoderEngine
 from dissc_tpu_torch.kernels import mel_kernel
 from dissc_tpu_torch.train.vocoder_trainer import GANTrainer
 
 CATEGORIES = [  # first match wins, on the lower-cased kernel name
-    ("K1 mel", ("mel_dft_kernel", "mel_log_kernel")),
+    ("K1 mel", ("log_mel_fft_kernel",)),
     ("optimizer", ("adam", "multi_tensor")),
     ("conv via FFT (transforms + complex products)", ("fft", "region_transform", "cf32")),
     ("conv data grad", ("dgrad",)),
@@ -87,6 +88,29 @@ def report(tag: str, prof, wall_ms: float, steps: int) -> None:
         print(f"  {us / 1e3 / steps:9.3f} ms/step  {100 * us / total_us:5.1f} %  {name[:110]}")
 
 
+def k1_report(dev: torch.device, n: int = 20) -> None:
+    """K1's own device time per launch (the profiler's kernel durations)
+    over ``n`` launches at each of ``chip_smoke.kernel_cases()``."""
+    g = torch.Generator().manual_seed(0)
+    for hc, b, t in kernel_cases():
+        args = mel_args(hc)
+        y = (torch.randn((b, t), generator=g) * 0.3).to(dev)
+        for _ in range(3):
+            mel_kernel.mel_spectrogram_kernel(y, *args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                mel_kernel.mel_spectrogram_kernel(y, *args)
+            torch.cuda.synchronize()
+        us = [e.duration_ns() / 1e3 for e in prof.profiler.kineto_results.events()
+              if category(e.name()) == "K1 mel"]
+        if len(us) != n:
+            raise RuntimeError(f"the profiler saw {len(us)} of {n} K1 launches")
+        print(json.dumps({"window": "K1", "shape": [b, t], "n_fft": hc.n_fft, "launches": n,
+                          "kernel_us_mean": float(np.mean(us)), "kernel_us_min": min(us),
+                          "kernel_us_max": max(us)}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
@@ -97,6 +121,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     mel_kernel._launcher()  # build K1 before the timed windows
     dev = torch.device("cuda")
+    k1_report(dev)
     h = VocoderConfig()
     trainer = GANTrainer(h, device=dev, seed=h.seed)
     g = torch.Generator().manual_seed(1)

@@ -10,10 +10,14 @@ drawn from a fixed seed:
 1. set-up: the card's name and power limit, TF32 off for cuBLAS and
    cuDNN, and the build of every CUDA kernel from ``dissc_tpu_torch/csrc``;
 2. kernels: each kernel against its plain PyTorch version on the card
-   (forward and gradient, stated tolerances) and timed beside it;
-3. train: two steps of a small config held against the CPU path, then
-   GAN train steps and one validation step through ``GANTrainer`` at full
-   width, with the launch counters set to 0 just before and read just after;
+   (forward and gradient, stated tolerances) and timed beside it and beside
+   a cuFFT chain, at the main path's shapes and at the mel widths of the
+   JAX package's multi-chip dry run (n_fft 32), on noise and on a tone with
+   stretches of silence;
+3. train: two steps of a small config held against the CPU path, at the
+   default and at the dry run's mel widths, then GAN train steps and one
+   validation step through ``GANTrainer`` at full width, with the launch
+   counters set to 0 just before and read just after;
 4. serve: ``VocoderEngine`` built from the trained generator answers
    requests across the frame buckets plus one that streams, checked
    against exact-length and monolithic forwards and against the CPU.
@@ -24,6 +28,7 @@ the last is the ``kernels`` JSON object; the last line is
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -32,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from dissc_tpu_torch.audio.mel import mel_filterbank, mel_spectrogram
+from dissc_tpu_torch.audio.mel import hann_window, mel_filterbank, mel_spectrogram
 from dissc_tpu_torch.core.config import VocoderConfig
 from dissc_tpu_torch.infer.streaming import receptive_field_frames
 from dissc_tpu_torch.infer.vocoder import VocoderEngine
@@ -49,18 +54,39 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def sync_time_ms(fn, n: int = 20) -> float:
-    """Mean device time of ``fn`` over ``n`` launches (CUDA events, warmed)."""
+def time_ms(fn, n: int = 20):
+    """(device ms, call ms) of one call of ``fn``: means over ``n`` calls
+    after 3 warm-up calls, from CUDA events.  Device: the calls are queued
+    behind a device sleep that outlasts the host's issuing them, so the
+    card runs them back to back and the host's time is hidden.  Call: not
+    queued, so it also counts the host's time to issue each call."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    start, end = ev(), ev()
     start.record()
     for _ in range(n):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    call_ms = start.elapsed_time(end) / n
+    cycles = 50_000_000
+    while True:
+        slept, start, end = ev(), ev(), ev()
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if slept.elapsed_time(start) > host_ms:  # all n were queued before the sleep ended
+            return start.elapsed_time(end) / n, call_ms
+        check(cycles < 2_000_000_000, "the host issued the timed calls within a device sleep")
+        cycles *= 4
 
 
 def mel_bound_ms(b: int, t: int, h: VocoderConfig):
@@ -70,8 +96,7 @@ def mel_bound_ms(b: int, t: int, h: VocoderConfig):
     magnitudes (4 per bin), the mel projection over the filters' non-zero
     weights only (2 each) and the log (1 per mel); or the bytes, the
     waveform read once, the log-mel written once and the window and the
-    non-zero mel weights read once.  K1 itself does a dense DFT as two
-    matrix products, some 70x these operations."""
+    non-zero mel weights read once."""
     freq = h.n_fft // 2 + 1
     frames = b * (1 + (t + 2 * ((h.n_fft - h.hop_size) // 2) - h.n_fft) // h.hop_size)
     mel_nnz = int(np.count_nonzero(mel_filterbank(h.sampling_rate, h.n_fft, h.num_mels,
@@ -83,24 +108,82 @@ def mel_bound_ms(b: int, t: int, h: VocoderConfig):
     return 1e3 * float(max(t_ops, t_bytes)), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_phase(h: VocoderConfig, dev: torch.device) -> dict:
-    """K1 vs the plain chain: forward atol 2e-4 / rtol 1e-4 (tests/test_kernels.py);
+def tone_and_silence(b: int, t: int, n_fft: int) -> torch.Tensor:
+    """Row i: 0.5 cos at the centre of bin 1 + 37i (mod n_fft/2 - 1), with
+    exact zeros over the second quarter and from the last eighth to the end,
+    cut on whole periods.  Every bin but the tone's three is zero, so the
+    1e-9 floor and the 1e-5 clip decide most cells, where an FFT and a dense
+    DFT round differently."""
+    k0 = 1 + (np.arange(b)[:, None] * 37) % (n_fft // 2 - 1)
+    y = 0.5 * np.cos(2 * np.pi * k0 * np.arange(t) / n_fft)
+    y[:, t // 4 // n_fft * n_fft:t // 2 // n_fft * n_fft] = 0.0
+    y[:, (t - t // 8) // n_fft * n_fft:] = 0.0
+    return torch.from_numpy(y.astype(np.float32))
+
+
+def cufft_chain(h: VocoderConfig, dev: torch.device):
+    """The log-mel through cuFFT, a function of ``y``, timed as a yardstick
+    only (the port never calls it): reflect-pad, ``torch.stft(center=False)``,
+    sqrt(|.|^2 + 1e-9), the mel product and the log.  Its window and mel
+    basis go to the card here, once: a copy from host memory in the timed
+    call would wait for the card."""
+    pad = (h.n_fft - h.hop_size) // 2
+    window = torch.from_numpy(hann_window(h.win_size, h.n_fft)).to(dev)
+    mel = torch.from_numpy(mel_filterbank(h.sampling_rate, h.n_fft, h.num_mels, float(h.fmin),
+                                          h.fmax_for_loss)).to(dev)
+
+    def chain(y: torch.Tensor) -> torch.Tensor:
+        yp = torch.nn.functional.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+        spec = torch.view_as_real(torch.stft(yp, h.n_fft, h.hop_size, window=window,
+                                             center=False, return_complex=True))
+        mag = torch.sqrt(spec.square().sum(-1) + 1e-9)
+        return torch.log(torch.clamp(mel @ mag, min=1e-5))
+    return chain
+
+
+# n_fft 32, hop 8, win 32, 8 mels: the mel widths of the JAX package's
+# multi-chip dry run (dissc_tpu/parallel/dryrun.py:101)
+DRY_RUN_MEL = dict(n_fft=32, hop_size=8, win_size=32, num_mels=8, num_freq=17, fmax=None,
+                   fmax_for_loss=None)
+
+
+def kernel_cases():
+    """(config, batch, samples) at which K1 is checked and timed: the train
+    step's shape (the main path's), a long input and the dry run's widths."""
+    h = VocoderConfig()
+    return [(h, h.batch_size, h.segment_size), (h, 2, 40960),
+            (VocoderConfig(**DRY_RUN_MEL), 4, 2560)]
+
+
+def mel_args(h: VocoderConfig) -> tuple:
+    return (h.n_fft, h.num_mels, h.sampling_rate, h.hop_size, h.win_size, float(h.fmin),
+            h.fmax_for_loss)
+
+
+def kernel_phase(dev: torch.device) -> dict:
+    """K1 vs the plain chain at ``kernel_cases()``, on noise and on a tone
+    with silence: forward atol 2e-4 / rtol 1e-4 (tests/test_kernels.py);
     gradient of mean|mel| within atol 1e-6 and within 1e-3 of its largest
     entry (its entries shrink with the element count of the mean), and not
-    all zero; timed plain, kernel, kernel, plain."""
-    args = (h.n_fft, h.num_mels, h.sampling_rate, h.hop_size, h.win_size, float(h.fmin),
-            h.fmax_for_loss)
+    all zero; timed plain, kernel, kernel, plain, then the cuFFT chain
+    twice."""
     g = torch.Generator().manual_seed(0)
-    row = {}
-    for b, t in [(h.batch_size, h.segment_size), (2, 40960)]:
+    rows, cufft = [], []
+    for hc, b, t in kernel_cases():
+        args = mel_args(hc)
+        where = f"{(b, t)} n_fft {hc.n_fft}"
         y = ((torch.randn((b, t), generator=g) * 0.3).clamp(-1, 1)).to(dev)
-        out = mel_kernel.mel_spectrogram_kernel(y, *args)
-        ref = mel_spectrogram(y, *args)
-        torch.cuda.synchronize()
-        err = (out - ref).abs()
-        check(out.shape == ref.shape, f"mel shape {tuple(out.shape)} vs {tuple(ref.shape)}")
-        check(bool(torch.isfinite(out).all()), "mel kernel output finite")
-        check(bool((err <= 2e-4 + 1e-4 * ref.abs()).all()), f"mel forward at {(b, t)}")
+        errs = {}
+        for name, x in (("noise", y), ("tone_and_silence", tone_and_silence(b, t, hc.n_fft).to(dev))):
+            out = mel_kernel.mel_spectrogram_kernel(x, *args)
+            ref = mel_spectrogram(x, *args)
+            torch.cuda.synchronize()
+            check(out.shape == ref.shape, f"mel shape {tuple(out.shape)} vs {tuple(ref.shape)}")
+            check(bool(torch.isfinite(out).all()), f"mel kernel output finite at {where}")
+            err = (out - ref).abs()
+            check(bool((err <= 2e-4 + 1e-4 * ref.abs()).all()),
+                  f"mel forward at {where} on {name}: max abs err {float(err.max())}")
+            errs[name] = float(err.max())
 
         yk = y.clone().requires_grad_(True)
         mel_kernel.mel_spectrogram_grad(yk, *args).abs().mean().backward()
@@ -108,23 +191,30 @@ def kernel_phase(h: VocoderConfig, dev: torch.device) -> dict:
         mel_spectrogram(yp, *args).abs().mean().backward()
         grad_err = float((yk.grad - yp.grad).abs().max())
         grad_max = float(yp.grad.abs().max())
-        check(float(yk.grad.abs().max()) > 0, f"mel gradient at {(b, t)} is not all zero")
+        check(float(yk.grad.abs().max()) > 0, f"mel gradient at {where} is not all zero")
         check(grad_err <= min(1e-6, 1e-3 * grad_max),
-              f"mel gradient at {(b, t)}: {grad_err} (largest entry {grad_max})")
+              f"mel gradient at {where}: {grad_err} (largest entry {grad_max})")
 
         plain = lambda: mel_spectrogram(y, *args)
         kern = lambda: mel_kernel.mel_spectrogram_kernel(y, *args)
-        p1, k1, k2, p2 = (sync_time_ms(f) for f in (plain, kern, kern, plain))
-        bound_ms, bound_by = mel_bound_ms(b, t, h)
-        shape_row = {"shape": [b, t], "max_abs_err": float(err.max()),
-                     "grad_max_abs_err": grad_err, "grad_max_abs": grad_max,
-                     "ms": (k1 + k2) / 2,
-                     "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "ms_turns": [p1, k1, k2, p2]}
-        print("mel kernel", json.dumps(shape_row), flush=True)
-        if not row:
-            row = shape_row  # the train shape is the main path's
-    return row
+        yard = functools.partial(cufft_chain(hc, dev), y)
+        p1, k1, k2, p2, c1, c2 = (time_ms(f) for f in (plain, kern, kern, plain, yard, yard))
+        cufft_err = float((yard() - plain()).abs().max())
+        bound_ms, bound_by = mel_bound_ms(b, t, hc)
+        row = {"shape": [b, t], "n_fft": hc.n_fft, "hop_size": hc.hop_size,
+               "num_mels": hc.num_mels, "max_abs_err": max(errs.values()),
+               "max_abs_err_by_input": errs, "grad_max_abs_err": grad_err,
+               "grad_max_abs": grad_max, "ms": (k1[0] + k2[0]) / 2,
+               "call_ms": (k1[1] + k2[1]) / 2, "plain_ms": (p1[0] + p2[0]) / 2,
+               "plain_call_ms": (p1[1] + p2[1]) / 2, "cufft_chain_ms": (c1[0] + c2[0]) / 2,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ms_turns": [p1[0], k1[0], k2[0], p2[0], c1[0], c2[0]]}
+        print("mel kernel", json.dumps(row), flush=True)
+        rows.append(row)
+        cufft.append({"shape": [b, t], "n_fft": hc.n_fft, "ms": row["cufft_chain_ms"],
+                      "max_abs_err_vs_plain": cufft_err})
+    print("cufft_chain_ms", json.dumps(cufft), flush=True)
+    return rows[0]  # the train shape is the main path's
 
 
 def synthetic_batch(h: VocoderConfig, g: torch.Generator, dev: torch.device) -> dict:
@@ -137,27 +227,37 @@ def synthetic_batch(h: VocoderConfig, g: torch.Generator, dev: torch.device) -> 
             "audio": (torch.randn((b, h.segment_size), generator=g) * 0.3).to(dev)}
 
 
-def train_reference_check(dev: torch.device) -> None:
-    """Two GAN steps of a small config on the card against the same steps
-    on the CPU (plain mel chain, CPU convolutions), from the same seed.
-    Losses rtol 1e-3: AdamW's first update is about lr * sign(grad), so a
-    gradient entry at float-noise level can move a weight by up to 2 lr."""
+def train_reference_check(dev: torch.device, **mel_widths) -> None:
+    """Two GAN steps of a small config (with ``mel_widths`` over the
+    defaults) on the card against the same steps on the CPU (plain mel
+    chain, CPU convolutions), from the same seed; each card step launches
+    K1 twice.  Losses rtol 1e-3: AdamW's first update is about
+    lr * sign(grad), so a gradient entry at float-noise level can move a
+    weight by up to 2 lr."""
     h = VocoderConfig(upsample_initial_channel=32, embedding_dim=8, model_in_dim=17,
-                      segment_size=1280, batch_size=2, mpd_periods=(2, 3), msd_scales=2)
+                      segment_size=1280, batch_size=2, mpd_periods=(2, 3), msd_scales=2,
+                      **mel_widths)
     g = torch.Generator().manual_seed(5)
     batches = [synthetic_batch(h, g, torch.device("cpu")) for _ in range(2)]
     runs = []
     for d in (torch.device("cpu"), dev):
         trainer = GANTrainer(h, device=d, seed=h.seed)
-        runs.append([{k: float(v) for k, v in trainer.train_step(b).items()}
-                     for b in batches])
+        metrics = []
+        for b in batches:
+            launches = mel_kernel.launch_counts["mel_spectrogram"]
+            metrics.append({k: float(v) for k, v in trainer.train_step(b).items()})
+            launched = mel_kernel.launch_counts["mel_spectrogram"] - launches
+            check(launched == (2 if d.type == "cuda" else 0),
+                  f"{launched} mel kernel launches in a small {d.type} step, n_fft {h.n_fft}")
+        runs.append(metrics)
     worst = 0.0
     for cpu_m, card_m in zip(*runs):
         for k, ref in cpu_m.items():
             worst = max(worst, abs(card_m[k] - ref) / max(abs(ref), 1e-6))
             check(abs(card_m[k] - ref) <= 1e-3 * abs(ref) + 1e-5,
-                  f"{k}: card {card_m[k]} vs CPU {ref}")
-    print("train reference: 2 small GAN steps, card vs CPU, worst relative loss error",
+                  f"{k} at n_fft {h.n_fft}: card {card_m[k]} vs CPU {ref}")
+    print(f"train reference (n_fft {h.n_fft}, hop {h.hop_size}, {h.num_mels} mels): 2 small "
+          f"GAN steps, card vs CPU, K1 launched twice a card step, worst relative loss error",
           worst, flush=True)
 
 
@@ -253,8 +353,9 @@ def main() -> int:
 
     dev = torch.device("cuda")
     h = VocoderConfig()
-    mel_row = kernel_phase(h, dev)
+    mel_row = kernel_phase(dev)
     train_reference_check(dev)
+    train_reference_check(dev, **DRY_RUN_MEL)
 
     mel_kernel.reset_launch_counts()
     steps = 4
@@ -268,11 +369,11 @@ def main() -> int:
                 "replaces": "dissc_tpu/kernels/mel_kernel.py:112",
                 "launches": launches, "max_abs_err": mel_row["max_abs_err"],
                 "grad_max_abs_err": mel_row["grad_max_abs_err"],
-                "ms": mel_row["ms"], "kernel_ms": mel_row["ms"],
+                "ms": mel_row["ms"], "kernel_ms": mel_row["ms"], "call_ms": mel_row["call_ms"],
                 "plain_ms": mel_row["plain_ms"], "bound_ms": mel_row["bound_ms"],
                 "bound_by": mel_row["bound_by"], "library_ms": None}]
-    print("library_ms: none; no single PyTorch call computes a log-mel spectrogram",
-          flush=True)
+    print("library_ms: null; no single PyTorch call computes a log-mel spectrogram (the "
+          "cuFFT chain above is several calls)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,229 +1,250 @@
-// Fused log-mel spectrogram for Hopper (sm_90a).
+// Fused log-mel spectrogram for Hopper (sm_90a): one launch, a real FFT
+// in shared memory.
 //
 // Replaces dissc_tpu/kernels/mel_kernel.py::mel_spectrogram_pallas (the
-// Pallas kernel _mel_kernel).  For every frame of a [B, T] float32 waveform:
+// Pallas kernel _mel_kernel, which multiplies frames by dense
+// window-folded cos/sin DFT bases on the MXU).  For a [B, T] float32
+// waveform it computes out[b, m, f], [B, num_mels, F]:
 //   reflect-pad (n_fft - hop)/2 at both ends, frame n_fft samples at hop,
-//   re/im = frame . (window-folded cos/sin DFT bases),
-//   mag = sqrt(re^2 + im^2 + 1e-9), mel = mag . melT [freq, num_mels],
-//   out[b, m, f] = log(max(mel, 1e-5)).
-// The magnitudes live only in shared memory.
+//   apply the periodic Hann window (centre-padded when win < n_fft),
+//   X = one-sided DFT, mag = sqrt(re^2 + im^2 + 1e-9),
+//   mel = slaney mel basis . mag, out = log(max(mel, 1e-5)).
 //
-// Bound: fp32 operations.  This design computes the DFT densely: at the
-// vocoder's train shape (64 x 8960, n_fft 1024, hop 256) it does ~4.7
-// GFLOP on ~7.4 MB (bases included), ~640 FLOP/byte, far above the card's
-// fp32 ridge.  (A real FFT would need ~70x fewer operations; the least
-// time of the function is in chip_smoke.py's mel_bound_ms.)  So the two
-// DFT products run as one SIMT matrix product C[frames, n_fft] =
-// frames[frames, n_fft] x basis[n_fft, n_fft] in IEEE fp32 FMA (no TF32),
-// tiled for reuse:
-//   * a block owns BM frames x BN basis columns; a thread owns an 8 x 8
-//     register tile, so each pair of 16-byte shared loads feeds 64 FMAs;
-//   * frames are gathered straight from the waveform into shared memory
-//     (reflect padding folded into the index; overlapping frames re-read
-//     from L2, never copied in device memory); tiles are double-buffered
-//     through registers, one barrier per k step;
-//   * basis columns are interleaved (cos k, sin k), so a thread holds the
-//     real and imaginary parts of its frequencies and takes magnitudes in
-//     registers.  Pair 0 carries (cos 0, cos n_fft/2): both sines are zero,
-//     so n_fft columns hold all n_fft/2 + 1 frequencies;
-//   * each block projects its BN/2 frequencies onto the mel basis into a
-//     partial sum; a second, small kernel adds the n_fft/BN partials in a
-//     fixed order (deterministic) and takes the log.
-// An FFT-based body is later work.
+// Bound: fp32 operations.  A windowed real FFT, the magnitudes, the
+// sparse mel sum and the log come to ~31 kFLOP a frame at n_fft 1024
+// (~69 MFLOP on the 2,240 frames of the train step's [64, 8960]), on ~3 MB
+// that must move: about 1 us at the card's fp32 peak either way.  A launch
+// of a few thousand frames comes nowhere near either peak: its time is set
+// inside the SMs, by instruction issue, shared-memory round trips (five
+// FFT stages) and barriers, and at a few hundred frames by one block's
+// latency.  So the design keeps every intermediate on chip and does the
+// least work:
+//   * a block owns G consecutive frames of one batch row and reads their
+//     waveform span, (G - 1) * hop + n_fft samples, into shared memory once
+//     in coalesced asynchronous copies, the reflect padding folded into the
+//     index; no padded or framed copy goes to device memory.  G = 2 puts
+//     1,152 blocks in flight at the train shape and 160 at [2, 40960] (320
+//     frames), more than the 132 SMs either way;
+//   * per frame the real n_fft-point DFT is one complex FFT of N = n_fft/2
+//     points: z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1], a Stockham
+//     (self-sorting) radix-4 FFT with one radix-2 stage where log2 N is odd
+//     (512 = 4^4 * 2), ping-ponging between two shared buffers; the first
+//     radix-4 stage packs z straight from the span.  Then the split step
+//     X[k] = (Z[k] + Z*[N-k])/2 - i e^{-2 pi i k / n_fft} (Z[k] - Z*[N-k])/2,
+//     k = 0..N, Z[N] = Z[0].  That is ~2.5 n_fft log2 n_fft operations a
+//     frame where a dense DFT does 2 n_fft^2 (80x more at 1024);
+//   * twiddles e^{-2 pi i j / n_fft}, j < N, come from a table computed in
+//     float64 on the host and rounded to fp32 (no sin/cos intrinsics, no
+//     fast math); the other half circle is the same table negated;
+//   * the N + 1 magnitudes of a frame stay in shared memory;
+//   * the mel projection reads only each filter's non-zero bins, from a
+//     CSR table (first bin, row pointer, weights: 1,001 weights and at most
+//     37 bins a filter at the default config).  One thread per (frame, mel)
+//     sums with fmaf in bin order, takes logf(fmaxf(s, 1e-5f)) and stores;
+//     a block's frames are adjacent in the output, so stores come in runs.
+// One launch, no scratch in device memory, no atomics: every run gives the
+// same result.  Precision is IEEE fp32 throughout.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BM = 32;                          // frames per block
-constexpr int BN = 128;                         // basis columns per block
-constexpr int BK = 8;                           // samples per k step
-constexpr int THREADS = (BM / 8) * (BN / 8);    // one 8 x 8 tile each: 64
-constexpr int PAIRS = BN / 2;                   // frequencies per block
-constexpr int AS_STRIDE = BM + 4;               // conflict-free transposed stores
-constexpr int A_LOADS = BM * BK / THREADS;      // 4
-constexpr int B_LOADS = BK * BN / 4 / THREADS;  // 4 float4
+constexpr int G = 2;              // frames per block
+static_assert(G == 2, "the mel loop splits its items into (mel, frame) for G = 2");
+constexpr int MAX_THREADS = 256;  // threads per block
 
-__global__ void __launch_bounds__(THREADS)
-mel_dft_kernel(const float* __restrict__ y,        // [B, T]
-               const float* __restrict__ basis,    // [n_fft, n_fft] interleaved
-               const float* __restrict__ mel_t,    // [n_fft/2 + 1, num_mels]
-               const int2* __restrict__ spans,     // [n_fft/BN, num_mels]
-               float* __restrict__ partial,        // [n_fft/BN, B*F, num_mels]
-               int t_len, int n_frames, int total, int n_fft, int hop,
-               int num_mels) {
-  __shared__ __align__(16) float As[2][BK][AS_STRIDE];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-  __shared__ float mags[BM][PAIRS + 1];  // column PAIRS: the n_fft/2 bin
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / 8);  // columns tx*4 + [0,4) and BN/2 + tx*4 + [0,4)
-  const int ty = tid / (BN / 8);  // rows    ty*4 + [0,4) and BM/2 + ty*4 + [0,4)
-  const int m0 = blockIdx.x * BM;
-  const int cb = blockIdx.y;
-  const int pad = (n_fft - hop) / 2;
-
-  // Frame rows this thread gathers: element e = tid + i*THREADS of the
-  // BM x BK tile is (row e / BK, sample e % BK); THREADS % BK == 0.
-  const int kk_a = tid % BK;
-  const float* yrow[A_LOADS];
-  int start[A_LOADS];
-#pragma unroll
-  for (int i = 0; i < A_LOADS; ++i) {
-    const int g = m0 + (tid + i * THREADS) / BK;
-    yrow[i] = nullptr;
-    start[i] = 0;
-    if (g < total) {
-      const int b = g / n_frames;
-      yrow[i] = y + (size_t)b * t_len;
-      start[i] = (g - b * n_frames) * hop - pad + kk_a;
-    }
-  }
-  const float* bcol = basis + (size_t)cb * BN;
-
-  float ra[A_LOADS];
-  float4 rb[B_LOADS];
-  auto load_tiles = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) {
-      float v = 0.f;
-      if (yrow[i]) {
-        int j = start[i] + k0;
-        if (j < 0) j = -j;
-        if (j >= t_len) j = 2 * (t_len - 1) - j;
-        v = __ldg(yrow[i] + j);
-      }
-      ra[i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int q = tid + i * THREADS;
-      rb[i] = __ldg(reinterpret_cast<const float4*>(
-          bcol + (size_t)(k0 + q / (BN / 4)) * n_fft) + q % (BN / 4));
-    }
-  };
-  auto store_tiles = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < A_LOADS; ++i)
-      As[buf][kk_a][(tid + i * THREADS) / BK] = ra[i];
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int q = tid + i * THREADS;
-      *reinterpret_cast<float4*>(&Bs[buf][q / (BN / 4)][(q % (BN / 4)) * 4]) = rb[i];
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  load_tiles(0);
-  store_tiles(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < n_fft; k0 += BK) {
-    const bool more = k0 + BK < n_fft;
-    if (more) load_tiles(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][BM / 2 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][BN / 2 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) store_tiles(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  // Magnitudes of this thread's 8 frames x 4 frequencies.
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = (i < 4) ? ty * 4 + i : BM / 2 + ty * 4 + (i - 4);
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      const int pl = (j < 4) ? tx * 2 + j / 2 : PAIRS / 2 + tx * 2 + (j - 4) / 2;
-      const float re = acc[i][j], im = acc[i][j + 1];
-      if (cb == 0 && pl == 0) {  // (cos 0, cos n_fft/2): both sines are zero
-        mags[r][0] = sqrtf(re * re + 1e-9f);
-        mags[r][PAIRS] = sqrtf(im * im + 1e-9f);
-      } else {
-        mags[r][pl] = sqrtf(re * re + im * im + 1e-9f);
-      }
-    }
-  }
-  __syncthreads();
-
-  // This block's frequencies projected onto the mel basis.  A triangular
-  // filter covers few bins: spans[cb][m] is the [first, last) range of
-  // this block's bins where filter m is non-zero (the zeros would add
-  // exact zeros to the sum).
-  const float* mel_blk = mel_t + (size_t)cb * PAIRS * num_mels;
-  const float* mel_nyq = mel_t + (size_t)(n_fft / 2) * num_mels;
-  const int2* span = spans + (size_t)cb * num_mels;
-  for (int o = tid; o < BM * num_mels; o += THREADS) {
-    const int r = o / num_mels;
-    const int m = o - r * num_mels;
-    const int g = m0 + r;
-    if (g >= total) continue;
-    const int2 sp = span[m];
-    float s = 0.f;
-    for (int pl = sp.x; pl < sp.y; ++pl)
-      s = fmaf(mags[r][pl], __ldg(mel_blk + pl * num_mels + m), s);
-    if (cb == 0) s = fmaf(mags[r][PAIRS], __ldg(mel_nyq + m), s);
-    partial[((size_t)cb * total + g) * num_mels + m] = s;
-  }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
 }
 
-// out[b, m, f] = log(max(sum over column blocks of partial, 1e-5)).
-__global__ void mel_log_kernel(const float* __restrict__ partial,
-                               float* __restrict__ out, int n_frames, int total,
-                               int num_mels, int n_blocks) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total * num_mels) return;
-  const int f = idx % n_frames;
-  const int bm = idx / n_frames;
-  const int m = bm % num_mels;
-  const int g = (bm / num_mels) * n_frames + f;
-  float s = 0.f;
-  for (int c = 0; c < n_blocks; ++c) s += partial[((size_t)c * total + g) * num_mels + m];
-  out[idx] = logf(fmaxf(s, 1e-5f));
+// Slot of twiddle j in shared memory: one pad every 16 entries, so that a
+// stage's reads at a stride of 16, 32 or 48 entries do not all fall on
+// one bank.
+__device__ __forceinline__ int tw_slot(int j) { return j + (j >> 4); }
+
+// e^{-2 pi i j / n_fft} for 0 <= j < n_fft from the table of its first half.
+__device__ __forceinline__ float2 twiddle(const float2* tw, int j, int half) {
+  const float2 t = tw[tw_slot(j & (half - 1))];
+  return j < half ? t : make_float2(-t.x, -t.y);
+}
+
+// In-place forward 4-point DFT.
+__device__ __forceinline__ void radix4(float2& v0, float2& v1, float2& v2, float2& v3) {
+  const float2 t0 = make_float2(v0.x + v2.x, v0.y + v2.y);
+  const float2 t1 = make_float2(v0.x - v2.x, v0.y - v2.y);
+  const float2 t2 = make_float2(v1.x + v3.x, v1.y + v3.y);
+  const float2 t3 = make_float2(v1.y - v3.y, v3.x - v1.x);  // -i (v1 - v3)
+  v0 = make_float2(t0.x + t2.x, t0.y + t2.y);
+  v1 = make_float2(t1.x + t3.x, t1.y + t3.y);
+  v2 = make_float2(t0.x - t2.x, t0.y - t2.y);
+  v3 = make_float2(t1.x - t3.x, t1.y - t3.y);
+}
+
+// Dynamic shared memory of one block, in bytes: the padded twiddles and
+// two FFT buffers of G frames.  The waveform span, (G - 1) hop + n_fft <=
+// G n_fft floats, lives in the second buffer until the first stage has
+// read it.
+size_t smem_bytes(int n_fft) {
+  const size_t half = n_fft / 2;
+  return 8 * (half + half / 16 + 2 * G * half);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+log_mel_fft_kernel(const float* __restrict__ y,          // [B, T]
+                   const float* __restrict__ window,     // [n_fft]
+                   const float2* __restrict__ twiddles,  // [n_fft/2]
+                   const int* __restrict__ mel_lo,       // [num_mels] first bin
+                   const int* __restrict__ mel_ptr,      // [num_mels + 1] into mel_w
+                   const float* __restrict__ mel_w,      // [nnz]
+                   float* __restrict__ out,              // [B, num_mels, F]
+                   int t_len, int n_frames, int frame_blocks, int n_fft, int hop,
+                   int num_mels) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int half = n_fft / 2;
+  const int quarter = half / 4;
+  const int lg_half = 31 - __clz(half);  // sizes are powers of two: shifts, not divisions
+  float2* tw = smem;                 // [half + half/16], see tw_slot
+  float2* src = tw + half + half / 16;  // [G][half]
+  float2* dst = src + G * half;      // [G][half]
+  float* span = reinterpret_cast<float*>(dst);  // until stage 1 has read it
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int b = blockIdx.x / frame_blocks;
+  const int f0 = (blockIdx.x - b * frame_blocks) * G;
+  const int frames = min(G, n_frames - f0);
+
+  // The block's waveform span, reflect padding folded into the index
+  // (the wrapper checks t_len > (n_fft - hop)/2, so one fold suffices),
+  // and the twiddles: asynchronous copies to shared memory, all in flight
+  // at once, so the block waits on one load latency and not on one per
+  // element a thread copies.
+  const float* row = y + (size_t)b * t_len;
+  const int start = f0 * hop - (n_fft - hop) / 2;
+  const int span_len = (frames - 1) * hop + n_fft;
+  for (int i = tid; i < span_len; i += nt) {
+    int j = start + i;
+    j = j < 0 ? -j : j;
+    j = j >= t_len ? 2 * (t_len - 1) - j : j;
+    __pipeline_memcpy_async(span + i, row + j, sizeof(float));
+  }
+  for (int i = tid; i < half; i += nt)
+    __pipeline_memcpy_async(tw + tw_slot(i), twiddles + i, sizeof(float2));
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // Stage 1 (span 1, radix 4, no twiddles) packs z from the windowed span.
+  for (int it = tid; it < frames * quarter; it += nt) {
+    const int f = it >> (lg_half - 2), j = it & (quarter - 1);
+    const float* x = span + f * hop;
+    float2 v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = 2 * (j + q * quarter);
+      v[q] = make_float2(__ldg(window + n) * x[n], __ldg(window + n + 1) * x[n + 1]);
+    }
+    radix4(v[0], v[1], v[2], v[3]);
+    float2* o = src + f * half + 4 * j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[q] = v[q];
+  }
+  __syncthreads();
+
+  // Stockham stages: ns points already combined; radix 4 while it fits,
+  // then one radix-2 stage.  Output index (j - k) * r + k + q * ns.
+  for (int ns = 4; ns < half;) {
+    const int r = ns * 4 <= half ? 4 : 2;
+    const int lg_m = lg_half - (r == 4 ? 2 : 1);
+    const int m = 1 << lg_m;
+    const int step = n_fft / (ns * r);  // twiddle index of e^{-2 pi i k / (ns r)}
+    for (int it = tid; it < frames * m; it += nt) {
+      const int f = it >> lg_m, j = it & (m - 1);
+      const int k = j & (ns - 1);
+      const float2* a = src + f * half + j;
+      float2* o = dst + f * half + (j - k) * r + k;
+      if (r == 4) {
+        float2 v0 = a[0];
+        float2 v1 = cmul(a[m], twiddle(tw, k * step, half));
+        float2 v2 = cmul(a[2 * m], twiddle(tw, 2 * k * step, half));
+        float2 v3 = cmul(a[3 * m], twiddle(tw, 3 * k * step, half));
+        radix4(v0, v1, v2, v3);
+        o[0] = v0;
+        o[ns] = v1;
+        o[2 * ns] = v2;
+        o[3 * ns] = v3;
+      } else {
+        const float2 v0 = a[0];
+        const float2 v1 = cmul(a[m], twiddle(tw, k * step, half));
+        o[0] = make_float2(v0.x + v1.x, v0.y + v1.y);
+        o[ns] = make_float2(v0.x - v1.x, v0.y - v1.y);
+      }
+    }
+    __syncthreads();
+    float2* t = src;
+    src = dst;
+    dst = t;
+    ns *= r;
+  }
+
+  // Split step and magnitudes; frame f's N + 1 magnitudes overwrite its
+  // slot of the free buffer (room for 2N floats).  Bin N takes only Z[0]:
+  // X[N] = Re Z[0] - Im Z[0], done beside bin 0.
+  for (int it = tid; it < frames * half; it += nt) {
+    const int f = it >> lg_half, k = it & (half - 1);
+    const float2* z = src + f * half;
+    float* mag = reinterpret_cast<float*>(dst + f * half);
+    const float2 zk = z[k];
+    const float2 zc = z[(half - k) & (half - 1)];
+    const float2 e = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y - zc.y));  // (Z[k] + Z*[N-k])/2
+    const float2 d = make_float2(0.5f * (zk.x - zc.x), 0.5f * (zk.y + zc.y));  // (Z[k] - Z*[N-k])/2
+    const float2 wd = cmul(tw[tw_slot(k)], d);
+    const float re = e.x + wd.y, im = e.y - wd.x;  // e - i * wd
+    mag[k] = sqrtf(re * re + im * im + 1e-9f);
+    if (k == 0) {
+      const float nyq = zk.x - zk.y;
+      mag[half] = sqrtf(nyq * nyq + 1e-9f);
+    }
+  }
+  __syncthreads();
+
+  // Sparse mel projection and log, one thread per (mel, frame).
+  for (int it = tid; it < num_mels * frames; it += nt) {
+    const int m = frames == 2 ? it >> 1 : it, f = it - m * frames;  // frames <= G = 2
+    const float* mag = reinterpret_cast<const float*>(dst + f * half) + __ldg(mel_lo + m);
+    const int p0 = __ldg(mel_ptr + m), p1 = __ldg(mel_ptr + m + 1);
+    float s = 0.f;
+    for (int p = p0; p < p1; ++p) s = fmaf(mag[p - p0], __ldg(mel_w + p), s);
+    out[((size_t)b * num_mels + m) * n_frames + f0 + f] = logf(fmaxf(s, 1e-5f));
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the fused log-mel on `stream` (two kernels).  `basis` is the
-// interleaved [n_fft, n_fft] window-folded DFT basis, `spans` the
-// [n_fft/128, num_mels, 2] int32 non-zero bin ranges, `partial` scratch of
-// (n_fft / 128) * batch * n_frames * num_mels floats.  Returns the CUDA
-// error code (0 on success).  The caller checks hop | n_fft,
-// n_fft % 128 == 0 and t_len > (n_fft - hop)/2.
-int mel_spectrogram_launch(const float* y, const float* basis, const float* mel_t,
-                           const int* spans, float* partial, float* out, int batch, int t_len,
-                           int n_frames, int n_fft, int hop, int num_mels,
-                           void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int total = batch * n_frames;
-  const int n_blocks = n_fft / BN;
-  const dim3 grid((total + BM - 1) / BM, n_blocks);
-  mel_dft_kernel<<<grid, THREADS, 0, s>>>(y, basis, mel_t,
-                                          reinterpret_cast<const int2*>(spans), partial,
-                                          t_len, n_frames, total, n_fft, hop, num_mels);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n_out = total * num_mels;
-  mel_log_kernel<<<(n_out + 255) / 256, 256, 0, s>>>(partial, out, n_frames, total,
-                                                     num_mels, n_blocks);
+// Launches the fused log-mel on `stream` (one kernel).  `window` is the
+// [n_fft] Hann window, `twiddles` the [n_fft/2] complex e^{-2 pi i j/n_fft},
+// `mel_lo`/`mel_ptr`/`mel_w` the mel basis in CSR form.  Returns the CUDA
+// error code (0 on success).  The caller checks that n_fft is a power of
+// two in [32, 4096], hop | n_fft, win <= n_fft, num_mels <= n_fft/2 + 1,
+// n_frames >= 1 and t_len > (n_fft - hop)/2.
+int mel_spectrogram_launch(const float* y, const float* window, const float* twiddles,
+                           const int* mel_lo, const int* mel_ptr, const float* mel_w,
+                           float* out, int batch, int t_len, int n_frames, int n_fft,
+                           int hop, int num_mels, void* stream) {
+  const size_t smem = smem_bytes(n_fft);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        log_mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int threads = G * n_fft / 8;  // one radix-4 butterfly each
+  threads = threads < 32 ? 32 : (threads > MAX_THREADS ? MAX_THREADS : threads);
+  const int frame_blocks = (n_frames + G - 1) / G;
+  log_mel_fft_kernel<<<frame_blocks * batch, threads, smem, (cudaStream_t)stream>>>(
+      y, window, reinterpret_cast<const float2*>(twiddles), mel_lo, mel_ptr, mel_w, out,
+      t_len, n_frames, frame_blocks, n_fft, hop, num_mels);
   return (int)cudaGetLastError();
 }
 

@@ -13,11 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import tone_and_silence
 from dissc_tpu.audio.mel import mel_spectrogram as jax_mel
 from dissc_tpu.kernels import mel_kernel as jax_mel_kernel
 from dissc_tpu_torch.audio.mel import mel_spectrogram
-from dissc_tpu_torch.kernels.mel_kernel import (folded_bases, launch_counts,
+from dissc_tpu_torch.core.config import VocoderConfig
+from dissc_tpu_torch.kernels.mel_kernel import (kernel_supports, kernel_tables, launch_counts,
                                                 mel_spectrogram_grad, mel_spectrogram_kernel)
+from dissc_tpu_torch.train.vocoder_trainer import pick_mel_fn
 
 torch.set_num_threads(2)
 
@@ -52,34 +55,105 @@ def test_kernel_wrapper_on_cpu_takes_plain_chain():
     assert launch_counts["mel_spectrogram"] == before  # no kernel on a CPU tensor
 
 
-@pytest.mark.parametrize("fmax", [8000, None])
-def test_kernel_operands_reproduce_the_chain(fmax):
-    """The CUDA kernel's operands, used as it uses them: frames times the
-    interleaved basis, magnitudes from (cos, sin) column pairs with pair 0
-    holding (cos 0, cos n_fft/2), per-128-column partial mel sums over the
-    non-zero spans only, then the log."""
-    y = torch.from_numpy(_wave(3, 2560, b=3))
-    basis, mel_t, spans = folded_bases(1024, 1024, 16000, 80, 0.0, fmax, torch.device("cpu"))
-    assert basis.shape == (1024, 1024) and spans.shape == (8, 80, 2)
-    frames = torch.nn.functional.pad(y[:, None], (384, 384), mode="reflect")[:, 0]
-    c = frames.unfold(-1, 1024, 256) @ basis  # [B, F, 1024]
-    mag = torch.sqrt(c[..., 0::2] ** 2 + c[..., 1::2] ** 2 + 1e-9)
-    mag[..., 0] = torch.sqrt(c[..., 0] ** 2 + 1e-9)
-    nyquist = torch.sqrt(c[..., 1] ** 2 + 1e-9)
-    mel = nyquist[..., None] * mel_t[512]
-    for blk in range(8):
-        for m in range(80):
-            lo, hi = (blk * 64 + int(v) for v in spans[blk, m])
-            mel[..., m] += mag[..., lo:hi] @ mel_t[lo:hi, m]
-    out = torch.log(torch.clamp(mel, min=1e-5)).transpose(1, 2)
-    torch.testing.assert_close(out, mel_spectrogram(y, fmax=fmax), atol=ATOL, rtol=RTOL)
+def _fft_kernel_mirror(y, n_fft, hop, win, mels, fmax, sampling_rate=16000):
+    """csrc/mel_kernel.cu's steps on the CPU in float32, with the wrapper's
+    own tables: frames of the reflect-padded waveform, z[n] = w[2n] x[2n] +
+    i w[2n+1] x[2n+1], a Stockham FFT of N = n_fft/2 points in the kernel's
+    stages (radix 4 from span 1, one radix-2 stage where log2 N is odd),
+    the split step to bins 0..N-1 and X[N] = Re Z[0] - Im Z[0],
+    sqrt(re^2 + im^2 + 1e-9), the CSR mel
+    sum in bin order and the log."""
+    window, tw, mel_lo, mel_ptr, mel_w = kernel_tables(n_fft, win, sampling_rate, mels, 0.0,
+                                                        fmax)
+    half, pad = n_fft // 2, (n_fft - hop) // 2
+    x = torch.nn.functional.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
+    x = x.unfold(-1, n_fft, hop) * torch.from_numpy(window)  # [B, F, n_fft]
+    table = torch.complex(torch.from_numpy(tw[:, 0]), torch.from_numpy(tw[:, 1]))
+
+    def twiddle(j):  # e^{-2 pi i j / n_fft}, 0 <= j < n_fft, from the half table
+        return torch.where(j < half, table[j % half], -table[j % half])
+
+    a, ns = torch.complex(x[..., 0::2], x[..., 1::2]), 1
+    while ns < half:
+        r = 4 if ns * 4 <= half else 2
+        m = half // r
+        j = torch.arange(m)
+        k = j % ns
+        v = [a[..., j + q * m] * twiddle(q * k * (n_fft // (ns * r))) for q in range(r)]
+        if r == 4:
+            t0, t1, t2, t3 = v[0] + v[2], v[0] - v[2], v[1] + v[3], -1j * (v[1] - v[3])
+            v = [t0 + t2, t1 + t3, t0 - t2, t1 - t3]
+        else:
+            v = [v[0] + v[1], v[0] - v[1]]
+        b = torch.empty_like(a)
+        for q in range(r):
+            b[..., (j - k) * r + k + q * ns] = v[q]
+        a, ns = b, ns * r
+    k = torch.arange(half)
+    zk, zc = a[..., k], a[..., (half - k) % half].conj()
+    spec = 0.5 * (zk + zc) - 0.5j * table * (zk - zc)
+    nyquist = a[..., :1].real - a[..., :1].imag  # X[N] = Re Z[0] - Im Z[0]
+    mag = torch.sqrt(torch.cat([spec.real ** 2 + spec.imag ** 2, nyquist ** 2], -1) + 1e-9)
+    s = torch.zeros(mag.shape[:-1] + (mels,))
+    for m in range(mels):
+        for p in range(mel_ptr[m], mel_ptr[m + 1]):
+            s[..., m] += mag[..., mel_lo[m] + p - mel_ptr[m]] * float(mel_w[p])
+    return torch.log(torch.clamp(s, min=1e-5)).transpose(1, 2)
 
 
-def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError):
-        mel_spectrogram_kernel(torch.zeros(2, 2560), n_fft=1000, hop_size=256)
-    with pytest.raises(TypeError):
-        mel_spectrogram_kernel(torch.zeros(2, 2560, dtype=torch.float64))
+@pytest.mark.parametrize("n_fft, hop, win, mels, fmax, signal", [
+    (1024, 256, 1024, 80, 8000, "noise"),
+    (1024, 256, 1024, 80, None, "noise"),
+    (32, 8, 32, 8, None, "noise"),  # dissc_tpu/parallel/dryrun.py's widths
+    (2048, 512, 2048, 80, 8000, "noise"),
+    (1024, 256, 1024, 80, None, "tone_and_silence"),
+])
+def test_fft_kernel_algorithm_reproduces_the_chain(n_fft, hop, win, mels, fmax, signal):
+    t = 4 * n_fft + 3 * hop
+    y = _wave(n_fft, t, b=3) if signal == "noise" else tone_and_silence(3, t, n_fft).numpy()
+    kw = dict(n_fft=n_fft, num_mels=mels, hop_size=hop, win_size=win, fmax=fmax)
+    out = _fft_kernel_mirror(torch.from_numpy(y), n_fft, hop, win, mels, fmax)
+    plain = mel_spectrogram(torch.from_numpy(y), **kw)
+    ref = np.asarray(jax_mel(jnp.asarray(y), **kw))
+    assert out.shape == plain.shape == ref.shape
+    torch.testing.assert_close(out, plain, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+DRY_RUN = dict(n_fft=32, hop_size=8, win_size=32, num_mels=8)  # dissc_tpu/parallel/dryrun.py:101
+
+
+def test_kernel_supports_and_pick_mel_fn():
+    accepted = [(1024, 256, 1024, 80), (32, 8, 32, 8), (2048, 512, 2048, 80),
+                (4096, 4096, 4096, 80), (1024, 256, 800, 80), (64, 1, 64, 33)]
+    refused = [(1000, 250, 1000, 80), (1024, 256, 2048, 80), (1024, 384, 1024, 80),
+               (16, 4, 16, 8), (8192, 256, 8192, 80), (32, 8, 32, 18)]
+    assert all(kernel_supports(*c) for c in accepted)
+    assert not any(kernel_supports(*c) for c in refused)
+    for n_fft, hop, win, mels in accepted + refused:
+        h = VocoderConfig(n_fft=n_fft, hop_size=hop, win_size=win, num_mels=mels)
+        expect = mel_spectrogram_grad if kernel_supports(n_fft, hop, win, mels) else mel_spectrogram
+        assert pick_mel_fn(h, torch.device("cuda")).func is expect
+        assert pick_mel_fn(h, torch.device("cpu")).func is mel_spectrogram
+    fn = pick_mel_fn(VocoderConfig(**DRY_RUN, fmax_for_loss=None), torch.device("cuda"))
+    assert fn.func is mel_spectrogram_grad
+    assert fn.keywords == dict(n_fft=32, num_mels=8, sampling_rate=16000, hop_size=8,
+                               win_size=32, fmin=0.0, fmax=None)
+
+
+@pytest.mark.parametrize("y, kw, err", [
+    (torch.zeros(2, 2560), dict(n_fft=1000, hop_size=250, win_size=1000), ValueError),
+    (torch.zeros(2, 2560), dict(win_size=2048), ValueError),
+    (torch.zeros(2, 2560), dict(hop_size=384), ValueError),
+    (torch.zeros(2, 2560), dict(n_fft=16, hop_size=4, win_size=16, num_mels=8), ValueError),
+    (torch.zeros(2, 2560), dict(DRY_RUN, num_mels=18), ValueError),
+    (torch.zeros(2, 300), {}, ValueError),
+    (torch.zeros(2560), {}, ValueError),
+    (torch.zeros(2, 2560, dtype=torch.float64), {}, TypeError),
+])
+def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(y, kw, err):
+    with pytest.raises(err):
+        mel_spectrogram_kernel(y, **kw)
 
 
 def test_autograd_fn_value_and_grad_match_jax_custom_vjp():
