@@ -11,9 +11,9 @@ drawn from a fixed seed:
    cuDNN, and the build of every CUDA kernel from ``dissc_tpu_torch/csrc``;
 2. kernels: each kernel against its plain PyTorch version on the card
    (forward and gradient, stated tolerances) and timed beside it and beside
-   a cuFFT chain, at the main path's shapes and at the mel widths of the
-   JAX package's multi-chip dry run (n_fft 32), on noise and on a tone with
-   stretches of silence;
+   a cuFFT chain, at the main path's shapes, at the mel widths of the JAX
+   package's multi-chip dry run (n_fft 32) and at n_fft 4096, 1000 and
+   4095, on noise and on a tone with stretches of silence;
 3. train: two steps of a small config held against the CPU path, at the
    default and at the dry run's mel widths, then GAN train steps and one
    validation step through ``GANTrainer`` at full width, with the launch
@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from dissc_tpu_torch.audio.mel import hann_window, mel_filterbank, mel_spectrogram
+from dissc_tpu_torch.audio.probes import tone_and_silence
 from dissc_tpu_torch.core.config import VocoderConfig
 from dissc_tpu_torch.infer.streaming import receptive_field_frames
 from dissc_tpu_torch.infer.vocoder import VocoderEngine
@@ -54,39 +55,20 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, n: int = 20):
-    """(device ms, call ms) of one call of ``fn``: means over ``n`` calls
-    after 3 warm-up calls, from CUDA events.  Device: the calls are queued
-    behind a device sleep that outlasts the host's issuing them, so the
-    card runs them back to back and the host's time is hidden.  Call: not
-    queued, so it also counts the host's time to issue each call."""
+def sync_time_ms(fn, n: int = 20) -> float:
+    """Mean time of one call of ``fn`` over ``n`` calls (CUDA events, after
+    3 warm-up calls); it counts the host's time to issue each call where
+    that exceeds the device's."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    ev = lambda: torch.cuda.Event(enable_timing=True)
-    start, end = ev(), ev()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n):
         fn()
     end.record()
     torch.cuda.synchronize()
-    call_ms = start.elapsed_time(end) / n
-    cycles = 50_000_000
-    while True:
-        slept, start, end = ev(), ev(), ev()
-        slept.record()
-        torch.cuda._sleep(cycles)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        end.record()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        if slept.elapsed_time(start) > host_ms:  # all n were queued before the sleep ended
-            return start.elapsed_time(end) / n, call_ms
-        check(cycles < 2_000_000_000, "the host issued the timed calls within a device sleep")
-        cycles *= 4
+    return start.elapsed_time(end) / n
 
 
 def mel_bound_ms(b: int, t: int, h: VocoderConfig):
@@ -106,19 +88,6 @@ def mel_bound_ms(b: int, t: int, h: VocoderConfig):
     nbytes = 4.0 * (b * t + frames * h.num_mels + h.win_size + mel_nnz)
     t_ops, t_bytes = frames * per_frame / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * float(max(t_ops, t_bytes)), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def tone_and_silence(b: int, t: int, n_fft: int) -> torch.Tensor:
-    """Row i: 0.5 cos at the centre of bin 1 + 37i (mod n_fft/2 - 1), with
-    exact zeros over the second quarter and from the last eighth to the end,
-    cut on whole periods.  Every bin but the tone's three is zero, so the
-    1e-9 floor and the 1e-5 clip decide most cells, where an FFT and a dense
-    DFT round differently."""
-    k0 = 1 + (np.arange(b)[:, None] * 37) % (n_fft // 2 - 1)
-    y = 0.5 * np.cos(2 * np.pi * k0 * np.arange(t) / n_fft)
-    y[:, t // 4 // n_fft * n_fft:t // 2 // n_fft * n_fft] = 0.0
-    y[:, (t - t // 8) // n_fft * n_fft:] = 0.0
-    return torch.from_numpy(y.astype(np.float32))
 
 
 def cufft_chain(h: VocoderConfig, dev: torch.device):
@@ -149,10 +118,17 @@ DRY_RUN_MEL = dict(n_fft=32, hop_size=8, win_size=32, num_mels=8, num_freq=17, f
 
 def kernel_cases():
     """(config, batch, samples) at which K1 is checked and timed: the train
-    step's shape (the main path's), a long input and the dry run's widths."""
+    step's shape (the main path's), a long input, the dry run's widths and,
+    on the long input, the ends of the configs K1 takes: n_fft 4096 with a
+    centre-padded window (98 KB of shared memory, 256 threads), 1000 (N =
+    500 = 4 * 5^3: radix-5 stages) and the odd 4095 (N = 4095 = 3^2 * 5 * 7
+    * 13: no packing, 162 KB)."""
     h = VocoderConfig()
     return [(h, h.batch_size, h.segment_size), (h, 2, 40960),
-            (VocoderConfig(**DRY_RUN_MEL), 4, 2560)]
+            (VocoderConfig(**DRY_RUN_MEL), 4, 2560),
+            (VocoderConfig(n_fft=4096, hop_size=1024, win_size=3200), 2, 40960),
+            (VocoderConfig(n_fft=1000, hop_size=250, win_size=1000), 2, 40960),
+            (VocoderConfig(n_fft=4095, hop_size=315, win_size=4095), 2, 40960)]
 
 
 def mel_args(h: VocoderConfig) -> tuple:
@@ -161,12 +137,16 @@ def mel_args(h: VocoderConfig) -> tuple:
 
 
 def kernel_phase(dev: torch.device) -> dict:
-    """K1 vs the plain chain at ``kernel_cases()``, on noise and on a tone
-    with silence: forward atol 2e-4 / rtol 1e-4 (tests/test_kernels.py);
-    gradient of mean|mel| within atol 1e-6 and within 1e-3 of its largest
-    entry (its entries shrink with the element count of the mean), and not
-    all zero; timed plain, kernel, kernel, plain, then the cuFFT chain
-    twice."""
+    """K1 vs the plain chain at ``kernel_cases()``, on noise and, where the
+    window spans the frame and n_fft <= 2048, on a tone with silence:
+    forward atol 2e-4 / rtol 1e-4 (tests/test_kernels.py); gradient of
+    mean|mel| within atol 1e-6 and within 1e-3 of its largest entry (its
+    entries shrink with the element count of the mean), and not all zero;
+    timed plain, kernel, kernel, plain, then the cuFFT chain twice.  The
+    tone's empty bins hold only rounding noise, which in an fp32 transform
+    of any kind grows with its peak bin, so with n_fft: past 2048 it
+    outgrows the 1e-9 floor, and with a shorter window the tone leaks into
+    every bin; cells at the 1e-5 clip then come out by rounding."""
     g = torch.Generator().manual_seed(0)
     rows, cufft = [], []
     for hc, b, t in kernel_cases():
@@ -174,7 +154,10 @@ def kernel_phase(dev: torch.device) -> dict:
         where = f"{(b, t)} n_fft {hc.n_fft}"
         y = ((torch.randn((b, t), generator=g) * 0.3).clamp(-1, 1)).to(dev)
         errs = {}
-        for name, x in (("noise", y), ("tone_and_silence", tone_and_silence(b, t, hc.n_fft).to(dev))):
+        inputs = [("noise", y)]
+        if hc.win_size == hc.n_fft and hc.n_fft <= 2048:
+            inputs.append(("tone_and_silence", tone_and_silence(b, t, hc.n_fft).to(dev)))
+        for name, x in inputs:
             out = mel_kernel.mel_spectrogram_kernel(x, *args)
             ref = mel_spectrogram(x, *args)
             torch.cuda.synchronize()
@@ -198,17 +181,17 @@ def kernel_phase(dev: torch.device) -> dict:
         plain = lambda: mel_spectrogram(y, *args)
         kern = lambda: mel_kernel.mel_spectrogram_kernel(y, *args)
         yard = functools.partial(cufft_chain(hc, dev), y)
-        p1, k1, k2, p2, c1, c2 = (time_ms(f) for f in (plain, kern, kern, plain, yard, yard))
+        p1, k1, k2, p2, c1, c2 = (sync_time_ms(f)
+                                  for f in (plain, kern, kern, plain, yard, yard))
         cufft_err = float((yard() - plain()).abs().max())
         bound_ms, bound_by = mel_bound_ms(b, t, hc)
         row = {"shape": [b, t], "n_fft": hc.n_fft, "hop_size": hc.hop_size,
-               "num_mels": hc.num_mels, "max_abs_err": max(errs.values()),
-               "max_abs_err_by_input": errs, "grad_max_abs_err": grad_err,
-               "grad_max_abs": grad_max, "ms": (k1[0] + k2[0]) / 2,
-               "call_ms": (k1[1] + k2[1]) / 2, "plain_ms": (p1[0] + p2[0]) / 2,
-               "plain_call_ms": (p1[1] + p2[1]) / 2, "cufft_chain_ms": (c1[0] + c2[0]) / 2,
+               "win_size": hc.win_size, "num_mels": hc.num_mels,
+               "max_abs_err": max(errs.values()), "max_abs_err_by_input": errs,
+               "grad_max_abs_err": grad_err, "grad_max_abs": grad_max, "ms": (k1 + k2) / 2,
+               "plain_ms": (p1 + p2) / 2, "cufft_chain_ms": (c1 + c2) / 2,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "ms_turns": [p1[0], k1[0], k2[0], p2[0], c1[0], c2[0]]}
+               "ms_turns": [p1, k1, k2, p2, c1, c2]}
         print("mel kernel", json.dumps(row), flush=True)
         rows.append(row)
         cufft.append({"shape": [b, t], "n_fft": hc.n_fft, "ms": row["cufft_chain_ms"],
@@ -369,8 +352,8 @@ def main() -> int:
                 "replaces": "dissc_tpu/kernels/mel_kernel.py:112",
                 "launches": launches, "max_abs_err": mel_row["max_abs_err"],
                 "grad_max_abs_err": mel_row["grad_max_abs_err"],
-                "ms": mel_row["ms"], "kernel_ms": mel_row["ms"], "call_ms": mel_row["call_ms"],
-                "plain_ms": mel_row["plain_ms"], "bound_ms": mel_row["bound_ms"],
+                "ms": mel_row["ms"], "kernel_ms": mel_row["ms"], "plain_ms": mel_row["plain_ms"],
+                "bound_ms": mel_row["bound_ms"],
                 "bound_by": mel_row["bound_by"], "library_ms": None}]
     print("library_ms: null; no single PyTorch call computes a log-mel spectrogram (the "
           "cuFFT chain above is several calls)", flush=True)

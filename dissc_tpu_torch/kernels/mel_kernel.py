@@ -7,19 +7,19 @@ Replaces ``dissc_tpu/kernels/mel_kernel.py::mel_spectrogram_pallas``
 by ``nvcc`` for ``sm_90a`` at first launch and bound with ``ctypes``.
 
 One launch per call: each block reads the waveform span of two frames
-into shared memory, takes their real FFT there (a Stockham complex FFT
-of ``n_fft/2`` points and a split step), keeps the magnitudes on chip,
-sums each mel filter over its non-zero bins only and writes the log.
-What bounds it on an H100: fp32 operations (about 1 us of work at the
-train shape); at these sizes latency sets its time.  See the source.
+into shared memory, takes their real FFT there (for an even ``n_fft`` a
+mixed-radix Stockham complex FFT of ``n_fft/2`` points and a split step),
+keeps the magnitudes on chip, sums each mel filter over its non-zero bins
+only and writes the log.  What bounds it on an H100: fp32 operations
+(about 1 us of work at the train shape); at these sizes latency sets its
+time.  See the source.
 
-It takes the configs :func:`kernel_supports` accepts: ``n_fft`` a power
-of two from 32 to 4096, ``hop | n_fft``, ``win <= n_fft`` and
-``num_mels <= n_fft/2 + 1``.  The wrapper raises for any other config, on
-every device.  Dispatch is by the tensor's device, never by failure: a
-CPU tensor goes to the plain chain
-:func:`dissc_tpu_torch.audio.mel.mel_spectrogram`; a CUDA tensor launches
-the kernel or raises.  Each launch adds one to
+It takes the configs :func:`kernel_supports` accepts: every config of the
+Pallas kernel (``hop | n_fft``, ``win <= n_fft``) with ``n_fft <= 4096``.
+The wrapper raises for any other config, on every device.  Dispatch is by
+the tensor's device, never by failure: a CPU tensor goes to the plain
+chain :func:`dissc_tpu_torch.audio.mel.mel_spectrogram`; a CUDA tensor
+launches the kernel or raises.  Each launch adds one to
 ``launch_counts["mel_spectrogram"]``.
 """
 from __future__ import annotations
@@ -41,24 +41,31 @@ def reset_launch_counts() -> None:
         launch_counts[key] = 0
 
 
+MAX_N_FFT = 4096  # csrc/mel_kernel.cu's MAX_N_FFT
+
+
 def kernel_supports(n_fft: int, hop_size: int, win_size: int, num_mels: int) -> bool:
-    """Whether K1 takes this config (the shared-memory FFT's sizes)."""
-    return (32 <= n_fft <= 4096 and n_fft & (n_fft - 1) == 0 and hop_size >= 1
-            and n_fft % hop_size == 0 and 1 <= win_size <= n_fft
-            and 1 <= num_mels <= n_fft // 2 + 1)
+    """Whether K1 takes this config: the Pallas kernel's (``hop | n_fft``,
+    ``win <= n_fft``) with ``n_fft`` up to :data:`MAX_N_FFT`, whatever its
+    factors."""
+    return (1 <= n_fft <= MAX_N_FFT and hop_size >= 1 and n_fft % hop_size == 0
+            and 1 <= win_size <= n_fft and num_mels >= 1)
 
 
 @functools.lru_cache(maxsize=8)
 def kernel_tables(n_fft: int, win_size: int, sampling_rate: int, num_mels: int,
                   fmin: float, fmax: Optional[float]):
     """K1's operands, as numpy arrays: the Hann window [n_fft] f32; the
-    twiddles ``e^{-2 pi i j / n_fft}``, ``j < n_fft/2``, as [n_fft/2, 2] f32
-    (re, im), computed in float64 and rounded; and the mel basis in CSR
-    form: ``mel_lo`` [num_mels] int32, the first non-zero bin of each
-    filter, ``mel_ptr`` [num_mels + 1] int32, where filter ``m``'s weights
-    sit in ``mel_w[mel_ptr[m]:mel_ptr[m + 1]]`` for bins ``mel_lo[m]`` on."""
+    twiddles ``e^{-2 pi i j / n_fft}``, ``j < n`` (``n = n_fft/2`` for an
+    even ``n_fft``, ``n_fft`` for an odd one: the kernel's FFT length), as
+    [n, 2] f32 (re, im), computed in float64 and rounded; and the mel basis
+    in CSR form: ``mel_lo`` [num_mels] int32, the first non-zero bin of
+    each filter, ``mel_ptr`` [num_mels + 1] int32, where filter ``m``'s
+    weights sit in ``mel_w[mel_ptr[m]:mel_ptr[m + 1]]`` for bins
+    ``mel_lo[m]`` on."""
     window = hann_window(win_size, n_fft)
-    ang = -2.0 * np.pi * np.arange(n_fft // 2) / n_fft
+    n = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    ang = -2.0 * np.pi * np.arange(n) / n_fft
     twiddles = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
     mel = mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax)
     mel_lo = np.zeros(num_mels, np.int32)
@@ -96,8 +103,8 @@ def _check(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int, num_mels: 
     if y.dtype != torch.float32:
         raise TypeError(f"y must be float32, got {y.dtype}")
     if not kernel_supports(n_fft, hop_size, win_size, num_mels):
-        raise ValueError(f"the kernel takes n_fft a power of two in [32, 4096], hop | n_fft, "
-                         f"win <= n_fft and num_mels <= n_fft/2 + 1 (n_fft={n_fft}, "
+        raise ValueError(f"the kernel takes 1 <= n_fft <= {MAX_N_FFT}, hop | n_fft, "
+                         f"1 <= win <= n_fft and num_mels >= 1 (n_fft={n_fft}, "
                          f"hop={hop_size}, win={win_size}, num_mels={num_mels})")
     pad = (n_fft - hop_size) // 2
     n_frames = 1 + (y.shape[1] + 2 * pad - n_fft) // hop_size

@@ -15,11 +15,10 @@ step and the reference.
 
 Both optimizers are ``torch.optim.AdamW(lr, (b1, b2), eps=1e-8,
 weight_decay=0.01)``, which is ``optax.adamw(..., weight_decay=0.01)``.
-The mel function is picked by config, as ``_pick_mel_fn`` picks by
-``hop | n_fft``: on the card with a config that
-:func:`dissc_tpu_torch.kernels.mel_kernel.kernel_supports` accepts it is
-the fused kernel (:func:`~dissc_tpu_torch.kernels.mel_kernel.mel_spectrogram_grad`,
-two launches per step), otherwise the plain chain.  Synthetic or preloaded
+The mel function is picked by config, as ``_pick_mel_fn`` picks: on the
+card with ``hop | n_fft`` and ``win <= n_fft`` it is the fused kernel
+(:func:`~dissc_tpu_torch.kernels.mel_kernel.mel_spectrogram_grad`, two
+launches per step), otherwise the plain chain.  Synthetic or preloaded
 batches are dicts of tensors: ``code [B, T]``, ``f0 [B, T, 1]`` (optional),
 ``spkr [B, 1]``, ``audio [B, T*320]``.
 
@@ -38,7 +37,7 @@ import torch.nn as nn
 from dissc_tpu_torch.audio.mel import mel_spectrogram
 from dissc_tpu_torch.core.config import VocoderConfig
 from dissc_tpu_torch.device import DeviceLike, generator_for, resolve_device
-from dissc_tpu_torch.kernels.mel_kernel import kernel_supports, mel_spectrogram_grad
+from dissc_tpu_torch.kernels.mel_kernel import mel_spectrogram_grad
 from dissc_tpu_torch.losses.gan import discriminator_loss, feature_loss, generator_loss
 from dissc_tpu_torch.models.discriminators import (MultiPeriodDiscriminator,
                                                    MultiScaleDiscriminator)
@@ -57,12 +56,14 @@ def make_models(h: VocoderConfig, seed: Optional[int] = None
 
 
 def pick_mel_fn(h: VocoderConfig, device: torch.device) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The mel-loss function for ``device``, chosen by config alone: the
-    fused kernel on the card when ``kernel_supports`` accepts the config,
-    else the plain chain (as the JAX ``_pick_mel_fn`` takes the Pallas
-    kernel on a TPU when ``hop | n_fft``)."""
-    use_kernel = device.type == "cuda" and kernel_supports(h.n_fft, h.hop_size, h.win_size,
-                                                           h.num_mels)
+    """The mel-loss function for ``device``, chosen by config alone, by the
+    JAX ``_pick_mel_fn``'s test: the fused kernel on the card when
+    ``hop | n_fft`` and ``win <= n_fft``, else the plain chain.  The kernel
+    takes each such config up to ``n_fft`` 4096 (``kernel_supports``) and
+    raises for a larger one; no config it is sent falls back to the plain
+    chain."""
+    use_kernel = (device.type == "cuda" and h.n_fft % h.hop_size == 0
+                  and h.win_size <= h.n_fft)
     return functools.partial(mel_spectrogram_grad if use_kernel else mel_spectrogram,
                              n_fft=h.n_fft, num_mels=h.num_mels,
                              sampling_rate=h.sampling_rate, hop_size=h.hop_size,
