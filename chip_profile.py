@@ -1,14 +1,16 @@
-"""Where the device time goes in the port's vocoder slice, on one CUDA card.
+"""Where the device time goes in the port, on one CUDA card.
 
     python3 chip_profile.py
 
-At the full ``VocoderConfig()`` width, with weights from a fixed seed:
-K1's own device time per launch at the shapes ``chip_smoke.py`` times;
-two warm-up GAN train steps at batch 64 x 8960 samples, then two steps
-under ``torch.profiler``; then one serving batch of 8 utterances x 1024
-frames (the shape of ``bench.py``'s vocoder batch) under the profiler.
-For each window it prints the host wall time, the device kernel time and
-busy share, the kernel time by category and the top kernels by name.
+At the full ``VocoderConfig()`` and HuBERT-base widths, with weights from
+fixed seeds: K1's own device time per launch at the shapes
+``chip_smoke.py`` times; two warm-up GAN train steps at batch 64 x 8960
+samples, then two steps under ``torch.profiler``; one serving batch of 8
+utterances x 1024 frames (the shape of ``bench.py``'s vocoder batch); and
+the conversion path at ``bench.py``'s shape (``chip_smoke.py``'s convert
+(a): units, prosody, vocoder), after two warm-up runs.  For each window it
+prints the host wall time, the device kernel time and busy share, the
+kernel time by category and the top kernels by name.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import kernel_cases, mel_args, synthetic_batch
+from chip_smoke import (bench_inputs, build_convert_models, convert_stages, kernel_cases,
+                        mel_args, own_kernel_us, synthetic_batch)
 from dissc_tpu_torch.core.config import VocoderConfig
 from dissc_tpu_torch.infer.vocoder import VocoderEngine
 from dissc_tpu_torch.kernels import mel_kernel
@@ -95,17 +98,7 @@ def k1_report(dev: torch.device, n: int = 20) -> None:
     for hc, b, t in kernel_cases():
         args = mel_args(hc)
         y = (torch.randn((b, t), generator=g) * 0.3).to(dev)
-        for _ in range(3):
-            mel_kernel.mel_spectrogram_kernel(y, *args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                mel_kernel.mel_spectrogram_kernel(y, *args)
-            torch.cuda.synchronize()
-        us = [e.duration_ns() / 1e3 for e in prof.profiler.kineto_results.events()
-              if category(e.name()) == "K1 mel"]
-        if len(us) != n:
-            raise RuntimeError(f"the profiler saw {len(us)} of {n} K1 launches")
+        us = own_kernel_us(lambda: mel_kernel.mel_spectrogram_kernel(y, *args), n=n)
         print(json.dumps({"window": "K1", "shape": [b, t], "n_fft": hc.n_fft, "launches": n,
                           "kernel_us_mean": float(np.mean(us)), "kernel_us_min": min(us),
                           "kernel_us_max": max(us)}), flush=True)
@@ -149,6 +142,19 @@ def main() -> int:
         engine.synthesize_batch(code, f0, spkr)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     report("serve batch 8 x 1024 frames", prof, wall_ms, 1)
+
+    m = build_convert_models(h, trainer.gen.state_dict(), dev)
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        convert_stages(m, *bench_inputs(rng))
+    wavs, names = bench_inputs(rng)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, _, stage_ms = convert_stages(m, wavs, names)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    print(json.dumps({"window": "convert stages", "encode_ms": stage_ms[0],
+                      "prosody_ms": stage_ms[1], "vocode_ms": stage_ms[2]}), flush=True)
+    report("convert 8 x 10.24 s (units, prosody, vocoder)", prof, wall_ms, 1)
     return 0
 
 

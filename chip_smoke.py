@@ -1,11 +1,11 @@
-"""Run the PyTorch port's vocoder slice on one CUDA card and check it.
+"""Run the PyTorch port on one CUDA card and check it.
 
     python3 chip_smoke.py
 
 Phases, at the full width of ``VocoderConfig()`` (the reference
 ``hubert100_lut.json``: 512 initial channels, rates 5*4*4*2*2, MRF
-(3, 7, 11) x (1, 3, 5), 8960-sample segments at batch 64), with weights
-drawn from a fixed seed:
+(3, 7, 11) x (1, 3, 5), 8960-sample segments at batch 64) and of
+HuBERT-base, with weights drawn from a fixed seed:
 
 1. set-up: the card's name and power limit, TF32 off for cuBLAS and
    cuDNN, and the build of every CUDA kernel from ``dissc_tpu_torch/csrc``;
@@ -20,7 +20,17 @@ drawn from a fixed seed:
    counters set to 0 just before and read just after;
 4. serve: ``VocoderEngine`` built from the trained generator answers
    requests across the frame buckets plus one that streams, checked
-   against exact-length and monolithic forwards and against the CPU.
+   against exact-length and monolithic forwards and against the CPU;
+5. convert, the conversion path, wav in and wav out, with the launch
+   counters set to 0 just before and read just after (it launches no
+   kernel of the port): (a) ``bench.py``'s shape, 8 utterances of 10.24 s,
+   through ``SpeechUnitEncoder`` (HuBERT-base, layer 6, k-means over 100
+   units), ``ProsodyConverter`` (rhythm + "new" pitch, 107 speakers,
+   bucket 512) and ``VocoderEngine``, timed by stage; (b) one
+   ``ConversionPipeline.convert`` call on 10 s at 22.05 kHz with voiced
+   stretches at known f0 (YAAPT must find each within 5 %); (c) the card
+   against the port's CPU path on small inputs (HuBERT, prosody, YAAPT,
+   ``convert_record``).
 
 It exits non-zero on any failure and without a card.  The line before
 the last is the ``kernels`` JSON object; the last line is
@@ -28,21 +38,33 @@ the last is the ``kernels`` JSON object; the last line is
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import functools
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from dissc_tpu_torch.audio import yaapt
 from dissc_tpu_torch.audio.mel import hann_window, mel_filterbank, mel_spectrogram
-from dissc_tpu_torch.audio.probes import tone_and_silence
+from dissc_tpu_torch.audio.probes import STRETCHES, tone_and_silence, voiced_stretches
+from dissc_tpu_torch.audio.resample import resample_poly_np
+from dissc_tpu_torch.core import seqops
 from dissc_tpu_torch.core.config import VocoderConfig
+from dissc_tpu_torch.infer.prosody import ProsodyConverter
 from dissc_tpu_torch.infer.streaming import receptive_field_frames
 from dissc_tpu_torch.infer.vocoder import VocoderEngine
 from dissc_tpu_torch.kernels import mel_kernel
+from dissc_tpu_torch.models.hubert import HubertConfig, SpeechUnitEncoder, init_state_dict
+from dissc_tpu_torch.models.prosody import LenPredictor
+from dissc_tpu_torch.pipeline import ConversionPipeline
+from dissc_tpu_torch.train.prosody_trainer import build_pitch_model
 from dissc_tpu_torch.train.vocoder_trainer import GANTrainer
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
@@ -69,6 +91,24 @@ def sync_time_ms(fn, n: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def own_kernel_us(fn, match: str = "log_mel_fft_kernel", n: int = 20) -> list:
+    """The device time of each launch of the kernel named ``match`` over
+    ``n`` calls of ``fn`` (``torch.profiler``'s kernel durations, after 3
+    warm-up calls): the kernel alone, without the host's time to launch it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.duration_ns() / 1e3 for e in prof.profiler.kineto_results.events()
+          if match in e.name()]
+    if len(us) != n:
+        raise RuntimeError(f"the profiler saw {len(us)} of {n} {match} launches")
+    return us
 
 
 def mel_bound_ms(b: int, t: int, h: VocoderConfig):
@@ -142,7 +182,9 @@ def kernel_phase(dev: torch.device) -> dict:
     forward atol 2e-4 / rtol 1e-4 (tests/test_kernels.py); gradient of
     mean|mel| within atol 1e-6 and within 1e-3 of its largest entry (its
     entries shrink with the element count of the mean), and not all zero;
-    timed plain, kernel, kernel, plain, then the cuFFT chain twice.  The
+    timed plain, kernel, kernel, plain, then the cuFFT chain twice (``ms``,
+    the host's launch time included), and the kernel's own device time
+    (``kernel_ms``, the profiler's, as ``chip_profile.py`` takes it).  The
     tone's empty bins hold only rounding noise, which in an fp32 transform
     of any kind grows with its peak bin, so with n_fft: past 2048 it
     outgrows the 1e-9 floor, and with a shorter window the tone leaks into
@@ -183,12 +225,14 @@ def kernel_phase(dev: torch.device) -> dict:
         yard = functools.partial(cufft_chain(hc, dev), y)
         p1, k1, k2, p2, c1, c2 = (sync_time_ms(f)
                                   for f in (plain, kern, kern, plain, yard, yard))
+        kernel_us = own_kernel_us(kern)
         cufft_err = float((yard() - plain()).abs().max())
         bound_ms, bound_by = mel_bound_ms(b, t, hc)
         row = {"shape": [b, t], "n_fft": hc.n_fft, "hop_size": hc.hop_size,
                "win_size": hc.win_size, "num_mels": hc.num_mels,
                "max_abs_err": max(errs.values()), "max_abs_err_by_input": errs,
                "grad_max_abs_err": grad_err, "grad_max_abs": grad_max, "ms": (k1 + k2) / 2,
+               "kernel_ms": float(np.mean(kernel_us)) / 1e3,
                "plain_ms": (p1 + p2) / 2, "cufft_chain_ms": (c1 + c2) / 2,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "ms_turns": [p1, k1, k2, p2, c1, c2]}
@@ -317,6 +361,263 @@ def serve_phase(h: VocoderConfig, trainer: GANTrainer, dev: torch.device) -> Non
           stream_err, "| card vs CPU", cpu_err, flush=True)
 
 
+# bench.py's conversion batch: 8 utterances of 512 HuBERT frames (10.24 s),
+# 107 speakers, rhythm de-normalised by (mean 4, std 2)
+BENCH_B, BENCH_T = 8, 512
+N_SPEAKERS = 107
+BENCH_LEN_STATS = (4.0, 2.0)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, log: list):
+    """While open, every call of ``module.name`` appends its wall ms to ``log``."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield log
+    finally:
+        setattr(module, name, fn)
+
+
+def converter(m: dict, dev, len_stats) -> ProsodyConverter:
+    """A ``ProsodyConverter`` on ``dev`` with copies of ``m``'s predictors."""
+    conv = ProsodyConverter(device=dev)
+    conv.set_models(len_model=copy.deepcopy(m["len_model"]), len_norm_stats=len_stats,
+                    pitch_model=copy.deepcopy(m["pitch_model"]))
+    conv.id2pitch_mean, conv.id2pitch_std = m["id2mean"], m["id2std"]
+    return conv
+
+
+def build_convert_models(h: VocoderConfig, gen_state: dict, dev: torch.device) -> dict:
+    """HuBERT-base to layer 6 with a 100-unit codebook, the rhythm and "new"
+    pitch models for 107 speakers and the vocoder, from fixed seeds."""
+    g = torch.Generator().manual_seed(7)
+    rng = np.random.default_rng(7)
+    hub_cfg = HubertConfig()
+    hub_state = init_state_dict(hub_cfg, g)
+    encoder = SpeechUnitEncoder(hub_state, np.zeros((100, hub_cfg.hidden_size), np.float32),
+                                hub_cfg, device=dev)
+    # k-means centroids seeded as k-means++ starts: the features of 100
+    # frames of a seeded input (random centroids far from the features
+    # would give a handful of units)
+    with torch.inference_mode():
+        seed_wav = torch.from_numpy((rng.standard_normal((2, 163920)) * 0.1).astype(np.float32))
+        feats = encoder.model(seed_wav.to(dev)).reshape(-1, hub_cfg.hidden_size).cpu().numpy()
+    codebook = feats[rng.choice(len(feats), 100, replace=False)]
+    encoder.codebook = torch.from_numpy(codebook).to(dev)
+    m = dict(hub_cfg=hub_cfg, hub_state=hub_state, codebook=codebook, encoder=encoder,
+             len_model=LenPredictor(n_tokens=100, n_speakers=N_SPEAKERS, generator=g),
+             pitch_model=build_pitch_model("new", 100, N_SPEAKERS, generator=g),
+             id2mean=rng.uniform(100, 250, N_SPEAKERS).astype(np.float32),
+             id2std=rng.uniform(10, 40, N_SPEAKERS).astype(np.float32),
+             spk_dict={f"spk{i:03d}": i for i in range(N_SPEAKERS)},
+             engine=VocoderEngine(h, gen_state, device=dev))
+    m["prosody"] = converter(m, dev, BENCH_LEN_STATS)
+    return m
+
+
+def bench_inputs(rng: np.random.Generator):
+    """``bench.py``'s batch: 8 waveforms of 163,920 samples (512 HuBERT
+    frames; noise, std 0.1) and a speaker each."""
+    wavs = (rng.standard_normal((BENCH_B, BENCH_T * 320 + 80)) * 0.1).astype(np.float32)
+    return wavs, [f"spk{s:03d}" for s in rng.integers(0, N_SPEAKERS, BENCH_B)]
+
+
+def convert_stages(m: dict, wavs: np.ndarray, names: list):
+    """Units -> prosody (bucket 512, out_cap 1024) -> waveforms, with a sync
+    after each stage; returns (units, converted records, waveforms, the
+    stages' wall ms)."""
+    T = wavs.shape[1] // 320
+    t = [time.perf_counter()]
+    units = m["encoder"].encode_units(wavs)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    records = [{"units": u.tolist(), "f0": [0.0] * T, "audio": f"{n}_{j:03d}.wav"}
+               for j, (u, n) in enumerate(zip(units, names))]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # truncations: the converter counts them
+        converted = m["prosody"].convert_records(records, m["spk_dict"], norm_pitch=False,
+                                                 batch_size=len(wavs))
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    items = [{"code": np.asarray(c["units"], np.int64),
+              "f0": np.asarray(c["f0"], np.float32).reshape(-1, 1),
+              "spkr": np.array([m["spk_dict"][n]])} for c, n in zip(converted, names)]
+    out, _ = m["engine"].synthesize_utterances(items, batch_size=len(wavs))
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    return units, converted, out, np.diff(t) * 1e3
+
+
+def convert_bench(m: dict, runs: int = 3) -> list:
+    """(a) ``bench.py``'s shape through the three stages.  The first run
+    warms up; returns the rest."""
+    rng = np.random.default_rng(9)
+    prosody = m["prosody"]
+    results = []
+    for run in range(runs):
+        wavs, names = bench_inputs(rng)
+        carry_ms = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        truncated = prosody.truncation_count
+        with timed_calls(seqops, "carryover_host", carry_ms):
+            units, converted, out, stage_ms = convert_stages(m, wavs, names)
+        check(units.shape == (BENCH_B, BENCH_T) and 0 <= units.min() and units.max() < 100,
+              f"units of shape {units.shape} in [0, 100)")
+        out_cap = int(prosody.expand_factor * next(b for b in prosody.buckets if BENCH_T <= b))
+        for c, w in zip(converted, out):
+            check(0 < len(c["units"]) <= out_cap, f"prosody output within out_cap {out_cap}")
+            check(w.shape == (320 * len(c["units"]),) and bool(np.isfinite(w).all()),
+                  "vocoded length 320 x units, finite")
+        audio_s = sum(len(w) for w in out) / m["engine"].h.sampling_rate
+        row = {"run": run, "encode_ms": stage_ms[0], "prosody_ms": stage_ms[1],
+               "vocode_ms": stage_ms[2], "wall_ms": float(stage_ms.sum()), "audio_s": audio_s,
+               "rtf": float(stage_ms.sum()) / 1e3 / audio_s, "carryover_loop_ms": carry_ms,
+               "truncations": prosody.truncation_count - truncated,
+               "distinct_units": int(len(np.unique(units))),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print("convert (a) bench shape", json.dumps(row), flush=True)
+        results.append(row)
+    return results[1:]
+
+
+def convert_phase(h: VocoderConfig, gen_state: dict, dev: torch.device) -> None:
+    t0 = time.perf_counter()
+    m = build_convert_models(h, gen_state, dev)
+    encoder, prosody, spk_dict = m["encoder"], m["prosody"], m["spk_dict"]
+    print(f"convert: models built in {time.perf_counter() - t0:.1f} s (HuBERT-base to layer "
+          f"{m['hub_cfg'].output_layer}, {len(encoder.model.encoder.layers)} layers built)",
+          flush=True)
+
+    runs = convert_bench(m)
+    mean = {k: float(np.mean([r[k] for r in runs]))
+            for k in ("encode_ms", "prosody_ms", "vocode_ms", "wall_ms", "audio_s", "rtf")}
+    print("convert (a) mean of the timed runs", json.dumps(mean), flush=True)
+
+    # (b) one call, wav in and wav out, YAAPT included; a rhythm
+    # de-normalisation that keeps the output inside out_cap
+    sr = 22050
+    wav = voiced_stretches(sr, seed=8)
+    pipe_prosody = converter(m, dev, (1.5, 0.5))
+    f0_stats = {n: {"mean": float(m["id2mean"][i]), "std": float(m["id2std"][i])}
+                for n, i in spk_dict.items()}
+    pipe = ConversionPipeline(m["engine"], pipe_prosody, spk_dict, f0_stats=f0_stats,
+                              encoder=encoder)
+    viterbi_ms, convert_ms, outs = [], [], []
+    with timed_calls(yaapt, "_viterbi_states", viterbi_ms):
+        for _ in range(2):  # the first call is cold (scipy's resampler loads on first use)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(pipe.convert(wav, "spk003", sr=sr, source_speaker="spk010"))
+            torch.cuda.synchronize()
+            convert_ms.append(1e3 * (time.perf_counter() - t0))
+        record = pipe.encode(wav, sr)
+    out, out_sr = outs[-1]
+    # cuDNN picks its algorithms by the workspace free at the call, so two
+    # calls agree to rounding, not bit for bit
+    check(outs[0][0].shape == out.shape, "two convert calls give the same length")
+    repeat_err = float(np.abs(outs[0][0] - out).max())
+    check(repeat_err <= 1e-4, f"two convert calls differ by {repeat_err}")
+    converted = pipe_prosody.convert_records([dict(record, audio="spk010_probe.wav")], spk_dict,
+                                             "spk003", norm_pitch=True)[0]
+    check(pipe_prosody.truncation_count == 0, "no truncation in the pipeline call")
+    check(out_sr == 16000 and out.shape == (320 * len(converted["units"]),),
+          f"output length {out.shape} is 320 x the predicted durations' sum "
+          f"{len(converted['units'])}")
+    check(bool(np.isfinite(out).all()), "finite converted waveform")
+    f0 = np.asarray(record["f0"])
+    medians = []
+    for a, b, f_true in STRETCHES:
+        seg = f0[int(a / 0.02) + 5:int(b / 0.02) - 5]
+        voiced = seg[seg > 0]
+        check(voiced.size > 0.7 * seg.size, f"stretch at {f_true} Hz mostly voiced")
+        medians.append(float(np.median(voiced)))
+        check(abs(medians[-1] - f_true) / f_true < 0.05,
+              f"YAAPT median {medians[-1]} Hz on the {f_true} Hz stretch")
+    print("convert (b) pipeline", json.dumps({
+        "input_s": len(wav) / sr, "input_sr": sr, "units": len(record["units"]),
+        "output_frames": len(converted["units"]), "output_s": len(out) / out_sr,
+        "convert_ms_cold_then_warm": convert_ms, "repeat_max_abs_diff": repeat_err,
+        "viterbi_loop_ms": viterbi_ms,
+        "yaapt_frames": 4 * len(record["units"]), "stretch_f0_true": [s[2] for s in STRETCHES],
+        "stretch_f0_median": medians}), flush=True)
+
+    # (c) the card against the port's CPU path on small inputs: every
+    # comparison is taken and printed, then each is checked
+    cpu_encoder = SpeechUnitEncoder(m["hub_state"], m["codebook"], m["hub_cfg"], device="cpu")
+    wav1 = (np.random.default_rng(10).standard_normal(16000) * 0.1).astype(np.float32)
+    with torch.inference_mode():
+        f_card = encoder.model(torch.as_tensor(wav1[None], device=dev)).cpu()
+        f_cpu = cpu_encoder.model(torch.as_tensor(wav1[None]))
+    hubert_err = float((f_card - f_cpu).abs().max())
+    units_equal = np.array_equal(encoder.encode_units(wav1), cpu_encoder.encode_units(wav1))
+
+    records = [dict(record, units=record["units"][40 * j:40 * j + 120],
+                    f0=record["f0"][40 * j:40 * j + 120], audio=f"spk{7 * j:03d}_{j}.wav")
+               for j in range(6)]
+    cpu_prosody = converter(m, "cpu", BENCH_LEN_STATS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # truncations, counted by the converters
+        card_p = prosody.convert_records(records, spk_dict, "spk050", norm_pitch=False)
+        cpu_p = cpu_prosody.convert_records(records, spk_dict, "spk050", norm_pitch=False)
+    fa, fb = (np.concatenate([np.asarray(r["f0"]) for r in p]) for p in (card_p, cpu_p))
+    prosody_units_equal = [a["units"] for a in card_p] == [b["units"] for b in cpu_p]
+    prosody_voicing_equal = fa.shape == fb.shape and np.array_equal(fa > 0, fb > 0)
+    f0_rel = (float(np.max(np.abs(fa - fb) / np.maximum(np.abs(fb), 1e-6)))
+              if fa.shape == fb.shape else float("inf"))
+
+    # the candidates' tie order (a stable sort) on the card, on the CPU's NCCF
+    nccf = torch.rand((400, 241), generator=torch.Generator().manual_seed(11)) * 0.5
+    nccf[:, ::3] = 0.25  # runs of equal values and frames short of 5 peaks
+    f_cpu, m_cpu = yaapt._candidates(nccf, 16000, 40, 267)
+    f_dev, m_dev = (t.cpu() for t in yaapt._candidates(nccf.to(dev), 16000, 40, 267))
+    lags_equal = torch.equal(torch.round(16000 / f_dev), torch.round(16000 / f_cpu))
+    merit_err = float((m_dev - m_cpu).abs().max())
+
+    wav16 = resample_poly_np(wav, sr, 16000)
+    y_card = yaapt.yaapt_f0(wav16, 16000, device=dev)
+    y_cpu = yaapt.yaapt_f0(wav16, 16000, device="cpu")
+    v = y_cpu > 0
+    rel = np.abs(y_card - y_cpu) / np.maximum(y_cpu, 1e-6)
+    yaapt_rel = float(np.max(rel[v])) if v.any() else 0.0
+    bad = np.nonzero(((y_card > 0) != v) | (rel > 1e-4))[0]
+
+    small = dict(record, units=record["units"][:30], f0=record["f0"][:30])
+    cpu_pipe = ConversionPipeline(VocoderEngine(h, gen_state, device="cpu"),
+                                  converter(m, "cpu", (1.5, 0.5)), spk_dict, f0_stats=f0_stats)
+    w_card, _ = pipe.convert_record(small, "spk003", source_speaker="spk010")
+    w_cpu, _ = cpu_pipe.convert_record(small, "spk003", source_speaker="spk010")
+    wave_err = (float(np.abs(w_card - w_cpu).max()) if w_card.shape == w_cpu.shape
+                else float("inf"))
+    print("convert (c) card vs CPU", json.dumps({
+        "hubert_feature_max_abs_err": hubert_err, "hubert_units_equal": units_equal,
+        "prosody_records": len(records), "prosody_units_equal": prosody_units_equal,
+        "prosody_voicing_equal": prosody_voicing_equal, "prosody_f0_max_rel_err": f0_rel,
+        "candidate_lags_equal": lags_equal, "candidate_merit_max_abs_err": merit_err,
+        "yaapt_frames": len(y_cpu), "yaapt_voiced_f0_max_rel_err": yaapt_rel,
+        "yaapt_frames_that_differ": {"count": int(len(bad)), "frames": bad[:20].tolist(),
+                                     "card": y_card[bad[:20]].tolist(),
+                                     "cpu": y_cpu[bad[:20]].tolist()},
+        "convert_record_max_abs_err": wave_err}), flush=True)
+    check(hubert_err <= 1e-4, f"HuBERT features card vs CPU: {hubert_err}")
+    check(units_equal, "HuBERT units card vs CPU")
+    check(prosody_units_equal, "prosody units and durations card vs CPU")
+    check(prosody_voicing_equal, "prosody voicing card vs CPU")
+    check(f0_rel <= 1e-4, f"prosody f0 card vs CPU, relative {f0_rel}")
+    check(lags_equal and merit_err <= 1e-6, "YAAPT candidates and their tie order card vs CPU")
+    check(np.array_equal(y_card > 0, v), "YAAPT voicing card vs CPU on every frame")
+    check(yaapt_rel <= 1e-4, f"YAAPT voiced f0 card vs CPU, relative {yaapt_rel}")
+    check(wave_err <= 1e-4, f"convert_record waveform card vs CPU: {wave_err}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -346,13 +647,22 @@ def main() -> int:
     launches = mel_kernel.launch_counts["mel_spectrogram"]
     check(launches == 2 * steps + 2, f"mel kernel launches {launches} != 2 per step + 2 (val)")
     serve_phase(h, trainer, dev)
+    gen_state = {k: v.detach().clone() for k, v in trainer.gen.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+
+    mel_kernel.reset_launch_counts()
+    convert_phase(h, gen_state, dev)
+    check(mel_kernel.launch_counts["mel_spectrogram"] == 0,
+          "the conversion path launched no kernel of the port")
 
     kernels = [{"name": "mel_spectrogram", "route": "cuda",
                 "source": "dissc_tpu_torch/csrc/mel_kernel.cu",
                 "replaces": "dissc_tpu/kernels/mel_kernel.py:112",
                 "launches": launches, "max_abs_err": mel_row["max_abs_err"],
                 "grad_max_abs_err": mel_row["grad_max_abs_err"],
-                "ms": mel_row["ms"], "kernel_ms": mel_row["ms"], "plain_ms": mel_row["plain_ms"],
+                "ms": mel_row["ms"], "kernel_ms": mel_row["kernel_ms"],
+                "plain_ms": mel_row["plain_ms"],
                 "bound_ms": mel_row["bound_ms"],
                 "bound_by": mel_row["bound_by"], "library_ms": None}]
     print("library_ms: null; no single PyTorch call computes a log-mel spectrogram (the "

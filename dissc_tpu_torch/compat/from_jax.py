@@ -2,10 +2,11 @@
 
 The logic of ``dissc_tpu/compat/torch_export.py`` (the JAX -> reference
 torch layout), without importing it: each function takes a JAX tree as
-nested dicts of numpy arrays (as ``jax.device_get`` or a ``g_``/``do_``
-checkpoint gives it) and returns a state dict of CPU float32 tensors keyed
-like the reference ``sr/models.py`` modules, which is what the port's
-modules declare.
+nested dicts of numpy arrays (as ``jax.device_get`` or a ``g_``/``do_``/
+``best_model.pth`` checkpoint gives it) and returns a state dict of CPU
+float32 tensors keyed like the reference modules (``sr/models.py``,
+``model/len_predictor.py``, ``model/pitch_predictor.py``) or, for HuBERT,
+like transformers' ``HubertModel``: what the port's modules declare.
 
 Layouts: JAX ``Conv1d`` kernels are ``(k, in, out)``, ``ConvTranspose1d``
 ``(k, out, in)``, ``Conv2d`` ``(kh, kw, in, out)``; torch wants
@@ -96,4 +97,83 @@ def msd_state_dict(params: Mapping[str, Any], spectral: Mapping[str, Any]) -> St
                 tensors["weight_orig"] = tensors.pop("weight")
                 tensors["weight_u"] = _t(spec[name]["u"])
             _put(sd, prefix, tensors)
+    return sd
+
+
+def _bn(tree: Mapping[str, Any], stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``_BN`` wrapper's params and batch stats -> ``nn.BatchNorm1d``."""
+    return {"weight": _t(tree["BatchNorm_0"]["scale"]), "bias": _t(tree["BatchNorm_0"]["bias"]),
+            "running_mean": _t(stats["BatchNorm_0"]["mean"]),
+            "running_var": _t(stats["BatchNorm_0"]["var"])}
+
+
+def len_predictor_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """JAX ``LenPredictor`` ``{params, batch_stats}`` -> port ``LenPredictor``
+    state dict (``export_len_predictor``'s keys)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: StateDict = {"token_emb.weight": _t(params["token_emb"]["embedding"]),
+                     "spk_emb.weight": _t(params["spk_emb"]["embedding"])}
+    for c in ["cnn1"] + [f"cnn1{i}" for i in range(1, 7)] + ["cnn2"]:
+        _put(sd, c, _conv(params[c], _CONV1D))
+    for bn in ["bn1"] + [f"bn1{i}" for i in range(1, 7)]:
+        _put(sd, bn, _bn(params[bn], stats[bn]))
+    return sd
+
+
+def pitch_predictor_state_dict(variables: Mapping[str, Any], model_type: str = "new"
+                               ) -> StateDict:
+    """JAX ``PitchPredictor``/``PitchPredictorBase`` variables -> port state
+    dict (``export_pitch_predictor``'s keys; the ramp PE is computed, not
+    stored, so ``pe.pe`` is left out)."""
+    params, stats = variables["params"]["core"], variables["batch_stats"]["core"]
+    sd: StateDict = {"token_emb.weight": _t(params["token_emb"]["embedding"]),
+                     "spk_emb.weight": _t(params["spk_emb"]["embedding"])}
+    convs = (["cnn1"] + [f"cnn1{i}" for i in range(1, 8)]
+             + ["cnn2", "cnn_class1", "cnn_class2", "cnn_reg1", "cnn_reg2"])
+    for c in convs:
+        _put(sd, c, _conv(params[c], _CONV1D))
+    bns = ([f"bn1{i}" for i in range(1, 8)] + ["bn1", "bn_c1", "bn_r1"]
+           if model_type == "base" else ["bn2"])
+    for bn in bns:
+        _put(sd, bn, _bn(params[bn], stats[bn]))
+    return sd
+
+
+def hubert_state_dict(params: Mapping[str, Any], cfg) -> StateDict:
+    """JAX ``HubertEncoder`` params -> transformers ``HubertModel`` keys (the
+    inverse of ``dissc_tpu.models.hubert.convert_hf_state_dict``), which is
+    what the port's ``HubertEncoder`` declares.  Every layer in ``params``
+    is carried; the pos-conv weight norm as ``weight_g`` ``[1, 1, k]`` and
+    ``weight_v`` ``[out, in/groups, k]``."""
+    sd: StateDict = {}
+
+    def ln(prefix: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _t(tree["scale"]), _t(tree["bias"])
+
+    def dense(prefix: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).T)
+        sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+    fe = params["feature_extractor"]
+    for i in range(len(cfg.conv_dim)):
+        sd[f"feature_extractor.conv_layers.{i}.conv.weight"] = _t(
+            np.asarray(fe[f"conv_{i}"]["kernel"]).transpose(_CONV1D))
+    ln("feature_extractor.conv_layers.0.layer_norm", fe["group_norm"])
+    ln("feature_projection.layer_norm", params["fp_layer_norm"])
+    dense("feature_projection.projection", params["fp_projection"])
+    pos = params["pos_conv"]
+    sd["encoder.pos_conv_embed.conv.weight_g"] = _t(np.asarray(pos["g"]).reshape(1, 1, -1))
+    sd["encoder.pos_conv_embed.conv.weight_v"] = _t(np.asarray(pos["v"]).transpose(_CONV1D))
+    sd["encoder.pos_conv_embed.conv.bias"] = _t(pos["bias"])
+    ln("encoder.layer_norm", params["encoder_layer_norm"])
+    i = 0
+    while f"layer_{i}" in params:
+        p, tree = f"encoder.layers.{i}", params[f"layer_{i}"]
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            dense(f"{p}.attention.{name}", tree[name])
+        ln(f"{p}.layer_norm", tree["self_attn_layer_norm"])
+        dense(f"{p}.feed_forward.intermediate_dense", tree["fc1"])
+        dense(f"{p}.feed_forward.output_dense", tree["fc2"])
+        ln(f"{p}.final_layer_norm", tree["final_layer_norm"])
+        i += 1
     return sd

@@ -153,3 +153,15 @@ class VocoderConfig:
 
     def get(self, key: str, default: Any = None) -> Any:
         return getattr(self, key, default)
+
+
+@dataclasses.dataclass
+class ProsodyConfig:
+    """Widths of the rhythm and pitch predictors: the fields of
+    ``dissc_tpu.core.config.ProsodyConfig`` that ``build_pitch_model``
+    reads for inference (reference ``train_f0_predictor.py:111-121``).
+    The training fields (batch, rates, masking rates) come with the
+    prosody trainers."""
+
+    emb_size: int = 32
+    hidden: int = 128

@@ -199,12 +199,23 @@ def fold_weight_norm(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 class Embed(nn.Module):
-    """Embedding table, torch default init N(0, 1) (param ``weight``)."""
+    """Embedding table, torch default init N(0, 1) (param ``weight``).
+
+    ``padding_idx`` zeroes the *output* for that id, as the JAX ``Embed``
+    does (``dissc_tpu/models/layers.py:540-542``): a table carried from JAX
+    may hold a non-zero pad row, which ``nn.Embedding(padding_idx=...)``
+    would return as it is.
+    """
 
     def __init__(self, num_embeddings: int, features: int,
+                 padding_idx: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.padding_idx = padding_idx
         self.weight = nn.Parameter(torch.randn((num_embeddings, features), generator=generator))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        out = F.embedding(ids, self.weight)
+        if self.padding_idx is not None:
+            out = out.masked_fill((ids == self.padding_idx)[..., None], 0.0)
+        return out
