@@ -60,7 +60,7 @@ def test_encoder_features_and_units_match_jax(output_layer):
     tcfg = thub.HubertConfig(**{**TINY, "output_layer": output_layer})
     params = random_hubert_params(jcfg)
     wav = _wav()
-    ref = np.asarray(jhub.HubertEncoder(jcfg).apply({"params": params}, jnp.asarray(wav)))
+    ref = np.asarray(jax.jit(jhub.HubertEncoder(jcfg).apply)({"params": params}, jnp.asarray(wav)))
     model = thub.HubertEncoder(tcfg)
     assert len(model.encoder.layers) == output_layer  # layers past it are not built
     model.load_hf_state_dict(hubert_state_dict(params, tcfg))
@@ -100,7 +100,8 @@ def test_speech_unit_encoder_and_loader_match_jax(tmp_path):
     jcfg, tcfg = jhub.HubertConfig(**TINY), thub.HubertConfig(**TINY)
     params = random_hubert_params(jcfg, seed=3)
     wav = _wav(n=1, T=3200)[0]
-    feats = np.asarray(jhub.HubertEncoder(jcfg).apply({"params": params}, jnp.asarray(wav[None])))
+    encode = jax.jit(jhub.HubertEncoder(jcfg).apply)
+    feats = np.asarray(encode({"params": params}, jnp.asarray(wav[None])))
     codebook = feats[0, ::27][:12] + 0.01
     save_checkpoint(str(tmp_path / "hubert.pkl"), {"params": params})
     np.save(tmp_path / "km.npy", codebook)

@@ -147,8 +147,8 @@ def test_convert_wav_matches_jax(pipes, tmp_path):
     t = np.arange(int(0.6 * sr)) / sr
     wav = (0.4 * np.sin(2 * np.pi * 150 * t) + 0.2 * np.sin(2 * np.pi * 300 * t)
            ).astype(np.float32)
-    feats = np.asarray(jhub.HubertEncoder(jcfg).apply({"params": params},
-                                                       jnp.zeros((1, 16000))))[0]
+    encode = jax.jit(jhub.HubertEncoder(jcfg).apply)
+    feats = np.asarray(encode({"params": params}, jnp.zeros((1, 16000))))[0]
     codebook = (feats[::5][:10] + rng.standard_normal((10, 24)) * 0.5).astype(np.float32)
     save_checkpoint(str(tmp_path / "hubert.pkl"), params)
     np.save(tmp_path / "km.npy", codebook)

@@ -66,7 +66,7 @@ def test_len_predictor_matches_jax():
     seqs, spk, mask = _batch(900, [900, 300, 17])
     args = (jnp.asarray(seqs, jnp.int32), jnp.asarray(spk, jnp.int32))
     variables = random_variables(jm, *args, STATS)
-    ref = np.asarray(jm.apply(variables, *args, STATS, length_mask=jnp.asarray(mask)))
+    ref = np.asarray(jax.jit(jm.apply)(variables, *args, STATS, length_mask=jnp.asarray(mask)))
     model = LenPredictor(n_tokens=100, n_speakers=N_SPK)
     model.load_state_dict(len_predictor_state_dict(variables))
     with torch.no_grad():
@@ -81,7 +81,7 @@ def test_pitch_predictor_matches_jax(model_type):
     seqs, spk, mask = _batch(1100, [1100, 870, 40])
     args = (jnp.asarray(seqs, jnp.int32), jnp.asarray(spk, jnp.int32))
     variables = random_variables(jm, *args, seed=2)
-    ref_cls, ref_reg = jm.apply(variables, *args, length_mask=jnp.asarray(mask))
+    ref_cls, ref_reg = jax.jit(jm.apply)(variables, *args, length_mask=jnp.asarray(mask))
     model = build_pitch_model(model_type, 100, N_SPK)
     model.load_state_dict(pitch_predictor_state_dict(variables, model_type))
     with torch.no_grad():
