@@ -100,7 +100,7 @@ def k1_report(dev: torch.device, n: int = 20) -> None:
         y = (torch.randn((b, t), generator=g) * 0.3).to(dev)
         us = own_kernel_us(lambda: mel_kernel.mel_spectrogram_kernel(y, *args), n=n)
         print(json.dumps({"window": "K1", "shape": [b, t], "n_fft": hc.n_fft, "launches": n,
-                          "kernel_us_mean": float(np.mean(us)), "kernel_us_min": min(us),
+                          "records": len(us), "kernel_us_mean": float(np.mean(us)), "kernel_us_min": min(us),
                           "kernel_us_max": max(us)}), flush=True)
 
 

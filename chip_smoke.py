@@ -96,7 +96,11 @@ def sync_time_ms(fn, n: int = 20) -> float:
 def own_kernel_us(fn, match: str = "log_mel_fft_kernel", n: int = 20) -> list:
     """The device time of each launch of the kernel named ``match`` over
     ``n`` calls of ``fn`` (``torch.profiler``'s kernel durations, after 3
-    warm-up calls): the kernel alone, without the host's time to launch it."""
+    warm-up calls): the kernel alone, without the host's time to launch it.
+
+    CUPTI may drop an activity record (one H100 run kept 19 of 20), so the
+    list holds the records it kept: at least half of ``n``, and never more
+    than ``n`` (more would mean ``match`` names another kernel too)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -106,8 +110,8 @@ def own_kernel_us(fn, match: str = "log_mel_fft_kernel", n: int = 20) -> list:
         torch.cuda.synchronize()
     us = [e.duration_ns() / 1e3 for e in prof.profiler.kineto_results.events()
           if match in e.name()]
-    if len(us) != n:
-        raise RuntimeError(f"the profiler saw {len(us)} of {n} {match} launches")
+    if not n // 2 <= len(us) <= n or min(us) <= 0:
+        raise RuntimeError(f"the profiler kept {len(us)} records of {n} {match} launches")
     return us
 
 
@@ -233,6 +237,7 @@ def kernel_phase(dev: torch.device) -> dict:
                "max_abs_err": max(errs.values()), "max_abs_err_by_input": errs,
                "grad_max_abs_err": grad_err, "grad_max_abs": grad_max, "ms": (k1 + k2) / 2,
                "kernel_ms": float(np.mean(kernel_us)) / 1e3,
+               "kernel_ms_records": len(kernel_us),
                "plain_ms": (p1 + p2) / 2, "cufft_chain_ms": (c1 + c2) / 2,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "ms_turns": [p1, k1, k2, p2, c1, c2]}
