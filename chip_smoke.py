@@ -30,7 +30,22 @@ HuBERT-base, with weights drawn from a fixed seed:
    ``ConversionPipeline.convert`` call on 10 s at 22.05 kHz with voiced
    stretches at known f0 (YAAPT must find each within 5 %); (c) the card
    against the port's CPU path on small inputs (HuBERT, prosody, YAAPT,
-   ``convert_record``).
+   ``convert_record``);
+6. train loop, the training paths through their CLIs, with the launch and
+   native-crop counters set to 0 just before and read just after: (a)
+   ``cli.sr_train`` at ``VocoderConfig()`` width, batch 64, over a seeded
+   corpus of 128 wavs (0.4-4 s, 4 speakers; the short ones tile) for 6
+   steps with checkpoints and validation every 3 (the val manifest has no
+   f0, so YAAPT runs on every val crop), then again to step 8, resuming;
+   K1 must launch twice a step and twice a validation batch, the crops
+   must come from the native loader, the resumed run must start from the
+   saved state exactly, the learning rate must follow the per-epoch decay,
+   and ``VocoderEngine.from_checkpoint`` must serve from the written
+   ``g_``; (b) ``cli.train_len`` and ``cli.train_f0`` (base and new) for 2
+   epochs on 107 speakers, 4,096 train and 256 val records, then
+   ``ProsodyConverter.load`` converts the val records on the card; (c) the
+   card against the CPU: one rhythm and one pitch train step, and two
+   ``train_vocoder`` steps at a small config.
 
 It exits non-zero on any failure and without a card.  The line before
 the last is the ``kernels`` JSON object; the last line is
@@ -42,8 +57,11 @@ import contextlib
 import copy
 import functools
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -55,8 +73,14 @@ from dissc_tpu_torch.audio import yaapt
 from dissc_tpu_torch.audio.mel import hann_window, mel_filterbank, mel_spectrogram
 from dissc_tpu_torch.audio.probes import STRETCHES, tone_and_silence, voiced_stretches
 from dissc_tpu_torch.audio.resample import resample_poly_np
+from dissc_tpu_torch.cli import sr_train, train_f0, train_len
+from dissc_tpu_torch.compat.from_jax import generator_state_dict
 from dissc_tpu_torch.core import seqops
-from dissc_tpu_torch.core.config import VocoderConfig
+from dissc_tpu_torch.core.config import ProsodyConfig, VocoderConfig
+from dissc_tpu_torch.core.wav import write_wav
+from dissc_tpu_torch.data import native_loader
+from dissc_tpu_torch.data.stats import load_f0_stats, load_id_to_spkr, prep_stats_arrays
+from dissc_tpu_torch.device import generator_for
 from dissc_tpu_torch.infer.prosody import ProsodyConverter
 from dissc_tpu_torch.infer.streaming import receptive_field_frames
 from dissc_tpu_torch.infer.vocoder import VocoderEngine
@@ -64,6 +88,8 @@ from dissc_tpu_torch.kernels import mel_kernel
 from dissc_tpu_torch.models.hubert import HubertConfig, SpeechUnitEncoder, init_state_dict
 from dissc_tpu_torch.models.prosody import LenPredictor
 from dissc_tpu_torch.pipeline import ConversionPipeline
+from dissc_tpu_torch.train import prosody_trainer, vocoder_trainer
+from dissc_tpu_torch.train.checkpoints import load_checkpoint
 from dissc_tpu_torch.train.prosody_trainer import build_pitch_model
 from dissc_tpu_torch.train.vocoder_trainer import GANTrainer
 
@@ -623,6 +649,446 @@ def convert_phase(h: VocoderConfig, gen_state: dict, dev: torch.device) -> None:
     check(wave_err <= 1e-4, f"convert_record waveform card vs CPU: {wave_err}")
 
 
+# ---------------------------------------------------------------------------
+# 6. train loop: the training paths through their CLIs
+# ---------------------------------------------------------------------------
+
+N_TRAIN_WAVS, N_VAL_WAVS, N_WAV_SPEAKERS = 128, 8, 4
+
+
+def write_vocoder_corpus(root: str, n: int = N_TRAIN_WAVS, n_val: int = N_VAL_WAVS,
+                         seconds=(0.4, 4.0), seed: int = 12) -> tuple:
+    """Seeded 16 kHz wavs ``pNNN_xxxx.wav`` (``N_WAV_SPEAKERS`` speakers) of
+    voiced harmonics between stretches of silence, a JSONL train manifest
+    whose lines carry ``units`` (100 codes, one per 320 samples) and per-unit
+    ``f0``, and a val manifest of ``n_val`` of them with ``units`` only.
+    Returns (train manifest, val manifest)."""
+    rng = np.random.default_rng(seed)
+    train, val = [], []
+    for i in range(n):
+        samples = int(rng.uniform(*seconds) * 16000)
+        f = rng.uniform(90, 250)
+        t = np.arange(samples) / 16000
+        env = (np.sin(2 * np.pi * rng.uniform(0.5, 2) * t) > -0.3).astype(np.float64)
+        x = env * (0.4 * np.sin(2 * np.pi * f * t) + 0.2 * np.sin(4 * np.pi * f * t))
+        x += 0.02 * rng.standard_normal(samples)
+        name = f"p{225 + i % N_WAV_SPEAKERS}_{i:04d}.wav"
+        write_wav(os.path.join(root, name), x, 16000)
+        frames = samples // 320
+        voiced = env[::320][:frames] > 0
+        line = {"audio": name, "units": rng.integers(0, 100, frames).tolist()}
+        train.append(dict(line, f0=np.where(voiced, f, 0.0).round(2).tolist()))
+        if i < n_val:
+            val.append(line)
+    paths = []
+    for split, lines in (("train", train), ("val", val)):
+        paths.append(os.path.join(root, f"{split}.jsonl"))
+        with open(paths[-1], "w") as fh:
+            fh.writelines(json.dumps(line) + "\n" for line in lines)
+    return tuple(paths)
+
+
+def write_vocoder_config(root: str, manifests: tuple, **over) -> str:
+    cfg = dict(VocoderConfig().to_dict(), input_training_file=manifests[0],
+               input_validation_file=manifests[1], train_base_path=root, val_base_path=root,
+               **over)
+    path = os.path.join(root, "config.json")
+    with open(path, "w") as fh:
+        json.dump(cfg, fh)
+    return path
+
+
+@contextlib.contextmanager
+def recorded_steps(log: list):
+    """While open, every ``GANTrainer.train_step`` appends its metrics."""
+    step = GANTrainer.train_step
+
+    def recording(self, batch):
+        out = step(self, batch)
+        log.append(out)
+        return out
+
+    GANTrainer.train_step = recording
+    try:
+        yield log
+    finally:
+        GANTrainer.train_step = step
+
+
+@contextlib.contextmanager
+def restored_states(log: list):
+    """While open, each ``GANTrainer.restore`` appends a host copy of the
+    trainer's state as it stands right after the restore."""
+    restore = GANTrainer.restore
+
+    def recording(self, cp_g, cp_do):
+        epoch = restore(self, cp_g, cp_do)
+        log.append(trainer_state(self))
+        return epoch
+
+    GANTrainer.restore = recording
+    try:
+        yield log
+    finally:
+        GANTrainer.restore = restore
+
+
+def trainer_state(trainer: GANTrainer) -> dict:
+    """Host copies of a trainer's parameters, buffers and optimizer moments."""
+    host = lambda t: t.detach().cpu().clone()  # noqa: E731
+    out = {"step": trainer.step}
+    for name in ("gen", "mpd", "msd"):
+        out[name] = {k: host(v) for k, v in getattr(trainer, name).state_dict().items()}
+    for name in ("opt_g", "opt_d"):
+        state = getattr(trainer, name).state_dict()
+        out[name] = {(i, k): host(v) for i, st in state["state"].items() for k, v in st.items()}
+        out[name + "_lr"] = state["param_groups"][0]["lr"]
+    return out
+
+
+def same_state(a: dict, b: dict) -> bool:
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        if isinstance(a[k], dict):
+            if a[k].keys() != b[k].keys() or not all(torch.equal(a[k][j], b[k][j])
+                                                    for j in a[k]):
+                return False
+        elif a[k] != b[k]:
+            return False
+    return True
+
+
+def vocoder_loop(h: VocoderConfig, root: str, dev: torch.device) -> int:
+    """(a): 6 steps, checkpoints and validation every 3, then resume to 8;
+    returns K1's launches over both runs."""
+    manifests = write_vocoder_corpus(root)
+    config = write_vocoder_config(root, manifests)
+    ckpt = os.path.join(root, "ckpt")
+    argv = ["--config", config, "--checkpoint_path", ckpt, "--stdout_interval", "1",
+            "--checkpoint_interval", "3", "--validation_interval", "3"]
+    steps_per_epoch = N_TRAIN_WAVS // h.batch_size
+    val_batches = -(-N_VAL_WAVS // min(h.batch_size, N_VAL_WAVS))
+    metrics, restored, runs = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    mel_kernel.reset_launch_counts()
+    native_loader.reset_call_counts()
+    t0 = time.perf_counter()
+    with recorded_steps(metrics), restored_states(restored):
+        for steps, n_val in ((6, 2), (8, 0)):
+            launches = mel_kernel.launch_counts["mel_spectrogram"]
+            trainer = sr_train.main(argv + ["--training_steps", str(steps)])
+            launched = mel_kernel.launch_counts["mel_spectrogram"] - launches
+            check(trainer.step == steps, f"the loop ended at step {trainer.step}, not {steps}")
+            check(launched == 2 * (steps - trainer.loop_stats["start_step"])
+                  + 2 * n_val * val_batches,
+                  f"{launched} K1 launches in a run to step {steps}: 2 a step, 2 a val batch")
+            runs.append({"to_step": steps, "launches": launched,
+                         "lr": [trainer.opt_g.param_groups[0]["lr"],
+                                trainer.opt_d.param_groups[0]["lr"]], **trainer.loop_stats})
+            if steps == 6:
+                saved = trainer_state(trainer)
+            del trainer
+            torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    launches = mel_kernel.launch_counts["mel_spectrogram"]
+    crops = native_loader.call_counts["load_crops"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+
+    check(launches == 2 * 8 + 2 * 2 * val_batches, f"K1 launches {launches} in the loop")
+    check(crops >= 8 + 2 * val_batches, f"{crops} batches from the native crop loader")
+    check(len(losses) == 8 and all(np.isfinite(v) for m in losses for v in m.values()),
+          "8 steps with finite losses")
+    check(len(restored) == 1 and restored[0]["step"] == 6 and runs[1]["start_step"] == 6,
+          "the second run resumed at step 6")
+    check(same_state(restored[0], saved), "the resumed run began with the saved parameters, "
+                                          "buffers and optimizer moments")
+    g_file = load_checkpoint(os.path.join(ckpt, "g_00000006"))["generator"]
+    check(all(torch.equal(v, saved["gen"][k])
+              for k, v in generator_state_dict(g_file, h).items()), "g_00000006 = the state")
+    do_file = load_checkpoint(os.path.join(ckpt, "do_00000006"))
+    check(all(np.array_equal(do_file["optim_g"]["state"][i][k], v.numpy())
+              for (i, k), v in saved["opt_g"].items()), "do_00000006 holds the moments")
+    want_lr = h.learning_rate * h.lr_decay ** (8 // steps_per_epoch)
+    check(all(abs(lr - want_lr) <= 1e-12 * want_lr for lr in runs[1]["lr"]),
+          f"learning rate after step 8 {runs[1]['lr']} vs the schedule's {want_lr}")
+    engine = VocoderEngine.from_checkpoint(ckpt, device=dev)
+    rng = np.random.default_rng(13)
+    item = {"code": rng.integers(0, 100, 200), "spkr": np.array([1]),
+            "f0": rng.uniform(-1, 1, (200, 1)).astype(np.float32)}
+    wavs, _ = engine.synthesize_utterances([item])
+    check(wavs[0].shape == (200 * 320,) and bool(np.isfinite(wavs[0]).all()),
+          "the written g_ serves a request")
+
+    step_ms = [1e3 * s for r in runs for s in r["step_s"][1:]]
+    row = {"steps": [r["to_step"] for r in runs], "launches": launches,
+           "launches_by_run": [r["launches"] for r in runs], "native_crop_batches": crops,
+           "ms_per_step_with_data_steps_2_plus": step_ms,
+           "ms_per_step_mean": float(np.mean(step_ms)),
+           "first_step_ms": [1e3 * r["step_s"][0] for r in runs],
+           "prefetch_wait_share": [r["prefetch_wait_s"] / r["wall_s"] for r in runs],
+           "checkpoint_write_s": [s for r in runs for s in r["checkpoint_s"]],
+           "validation_s": [s for r in runs for s in r["validation_s"]],
+           "loop_wall_s": [r["wall_s"] for r in runs], "phase_wall_s": wall, "peak_gib": peak,
+           "lr_after_8": runs[1]["lr"], "losses_step_8": losses[-1]}
+    print("train loop (a) vocoder", json.dumps(row), flush=True)
+    return launches
+
+
+N_PROSODY_SPEAKERS = 107
+
+
+def write_unit_corpus(root: str, n_train: int = 4096, n_val: int = 256, seed: int = 14) -> list:
+    """``train.txt``/``val.txt`` of unit records (50-400 units, runs of 1-6,
+    per-unit f0 with a third unvoiced) over ``N_PROSODY_SPEAKERS`` speakers,
+    with ``id_to_spkr.pkl`` and ``f0_stats.pkl``; returns the val records."""
+    rng = np.random.default_rng(seed)
+    names = [f"spk{i:03d}" for i in range(N_PROSODY_SPEAKERS)]
+    means = rng.uniform(100, 250, N_PROSODY_SPEAKERS)
+    records = {}
+    for split, n in (("train", n_train), ("val", n_val)):
+        recs = []
+        for j in range(n):
+            k = int(rng.integers(50, 401))
+            spk = int(rng.integers(0, N_PROSODY_SPEAKERS))
+            units = np.repeat(rng.integers(0, 100, k), rng.integers(1, 7, k))[:k]
+            f0 = np.where(rng.random(k) < 0.33, 0.0, rng.normal(means[spk], 20, k))
+            recs.append({"units": units.tolist(), "f0": f0.round(2).tolist(),
+                         "audio": f"{names[spk]}_{split}{j:05d}.wav"})
+        with open(os.path.join(root, f"{split}.txt"), "w") as fh:
+            fh.writelines(json.dumps(r) + "\n" for r in recs)
+        records[split] = recs
+    with open(os.path.join(root, "id_to_spkr.pkl"), "wb") as fh:
+        pickle.dump(names, fh)
+    with open(os.path.join(root, "f0_stats.pkl"), "wb") as fh:
+        pickle.dump({n: {"mean": float(means[i]), "std": 20.0} for i, n in enumerate(names)}, fh)
+    return records["val"]
+
+
+@contextlib.contextmanager
+def timed_train_steps(step_ms: list):
+    """While open, the train steps that ``prosody_trainer`` builds append
+    their wall ms (synchronised)."""
+    makers = {name: getattr(prosody_trainer, name)
+              for name in ("make_len_steps", "make_pitch_steps")}
+
+    def wrap(make):
+        def made(*args, **kw):
+            train_step, eval_step = make(*args, **kw)
+
+            def timed(*a):
+                t0 = time.perf_counter()
+                out = train_step(*a)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                return out
+            return timed, eval_step
+        return made
+
+    for name, make in makers.items():
+        setattr(prosody_trainer, name, wrap(make))
+    try:
+        yield step_ms
+    finally:
+        for name, make in makers.items():
+            setattr(prosody_trainer, name, make)
+
+
+def prosody_loop(root: str, dev: torch.device) -> None:
+    """(b): the rhythm and both pitch trainers for 2 epochs through their
+    CLIs, then ``ProsodyConverter.load`` converts the val records."""
+    data = os.path.join(root, "units")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    val = write_unit_corpus(data)
+    corpus_s = time.perf_counter() - t0
+    common = ["--data_path", data, "--n_epochs", "2"]
+    f0_path = os.path.join(data, "f0_stats.pkl")
+    rows, dirs = {}, {}
+    for name, cli, extra in (("len", train_len, []),
+                             ("f0_base", train_f0, ["--f0_path", f0_path, "--model_type", "base"]),
+                             ("f0_new", train_f0, ["--f0_path", f0_path, "--model_type", "new"])):
+        step_ms, epoch_ms = [], []
+        with timed_train_steps(step_ms), timed_calls(prosody_trainer, "_run_epoch", epoch_ms):
+            t0 = time.perf_counter()
+            dirs[name] = cli.main(common + extra + ["--out_path", os.path.join(root, name)])
+            wall = time.perf_counter() - t0
+        check(os.path.exists(os.path.join(dirs[name], "best_model.pth")), f"{name} best model")
+        rows[name] = {"steps": len(step_ms), "ms_per_step_mean": float(np.mean(step_ms[1:])),
+                      "ms_per_step_median": float(np.median(step_ms)),
+                      "first_step_ms": step_ms[0], "train_epoch_ms": epoch_ms[0::2],
+                      "val_epoch_ms": epoch_ms[1::2], "cli_wall_s": wall}
+    spk = load_id_to_spkr(os.path.join(data, "id_to_spkr.pkl"))
+    id2mean, id2std = prep_stats_arrays(spk, load_f0_stats(f0_path))
+    converted = {}
+    for pitch in ("f0_new", "f0_base"):
+        conv = ProsodyConverter.load(N_PROSODY_SPEAKERS, dirs["len"], dirs[pitch],
+                                     pitch.split("_")[1], id2mean, id2std, device=dev)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # truncations: the converter counts them
+            out = conv.convert_records(val, spk, norm_pitch=False, batch_size=64)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(len(out) == len(val) and all(
+            0 < len(r["units"]) == len(r["f0"]) and 0 <= min(r["units"]) and max(r["units"]) < 100
+            and np.isfinite(r["f0"]).all() for r in out), f"{pitch}: converted val records")
+        converted[pitch] = {"ms": ms, "truncations": conv.truncation_count,
+                            "mean_units": float(np.mean([len(r["units"]) for r in out])),
+                            "voiced_share": float(np.mean([np.mean(np.asarray(r["f0"]) > 0)
+                                                           for r in out]))}
+    print("train loop (b) prosody", json.dumps({"corpus_s": corpus_s, "trainers": rows,
+                                                "convert_val": converted}), flush=True)
+
+
+def _pre_bn_bias(model: torch.nn.Module, key: str) -> bool:
+    """``cnnX.bias`` of a conv that feeds a BatchNorm: its gradient is 0 in
+    exact arithmetic (the norm removes it), rounding noise in practice."""
+    conv, _, leaf = key.partition(".")
+    bn = {"cnn1": "bn1", "cnn2": "bn2", "cnn_class1": "bn_c1", "cnn_reg1": "bn_r1",
+          **{f"cnn1{i}": f"bn1{i}" for i in range(1, 8)}}.get(conv)
+    return leaf == "bias" and bn is not None and hasattr(model, bn)
+
+
+def prosody_step_card_vs_cpu(root: str, dev: torch.device) -> dict:
+    """(c) one rhythm and one pitch ("new", PE dropout 0) train step, masking
+    0, from the same weights and batch on the card, on the CPU, and on the
+    CPU in float64 as the reference the two float32 runs are measured from.
+
+    Losses card vs CPU rtol 1e-4; running statistics atol 1e-5.  Gradients:
+    the loss is a sum over the batch, and the pitch model's weight gradients
+    lose up to ~1e-2 of their largest entry to float32 rounding on the CPU
+    as on the card, so each tensor's card gradient must lie as close to the
+    float64 one as the CPU's does (within 2x, plus 1e-6 of its largest
+    entry); a conv bias that feeds a BatchNorm, whose gradient is 0 in exact
+    arithmetic, is excepted.  Adam's first step moves each parameter by
+    about lr times the sign of its gradient, so the updated parameters are
+    held to atol 1e-5 card vs CPU wherever the float64 gradient exceeds both
+    float32 runs' error in its tensor (both signs are then right), and
+    elsewhere to a move within lr on each side."""
+    lr, cfg = 3e-4, ProsodyConfig(len_masking_rate=0.0, pitch_masking_rate=0.0)
+    from dissc_tpu_torch.data.datasets import LenDataset, PitchDataset
+
+    data = os.path.join(root, "units")
+    spk = load_id_to_spkr(os.path.join(data, "id_to_spkr.pkl"))
+    stats = load_f0_stats(os.path.join(data, "f0_stats.pkl"))
+    lens_ds = LenDataset.from_file(os.path.join(data, "val.txt"), spk)
+    pitch_ds = PitchDataset.from_file(os.path.join(data, "val.txt"), spk, stats)
+    id2mean, id2std = (torch.from_numpy(a) for a in prep_stats_arrays(spk, stats))
+    cpu = torch.device("cpu")
+    worst = {}
+    for name in ("len", "pitch"):
+        if name == "len":
+            model = LenPredictor(n_speakers=len(spk), masking_rate=0.0, generator=generator_for(3))
+            arrays = (lens_ds.vals[:32], lens_ds.lens[:32], lens_ds.spk_ids[:32])
+        else:
+            model = build_pitch_model("new", 100, len(spk), cfg, generator=generator_for(4))
+            model.pe.dropout = 0.0
+            arrays = (pitch_ds.vals[:32], pitch_ds.fs[:32], pitch_ds.spk_ids[:32])
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        runs = {}
+        for tag, d, dtype in (("cpu64", cpu, torch.float64), ("cpu", cpu, torch.float32),
+                              ("card", dev, torch.float32)):
+            m = copy.deepcopy(model).to(d, dtype)
+            opt = torch.optim.Adam(m.parameters(), lr=lr)
+            vals, target, spk_ids = prosody_trainer._device_batch(arrays, d)
+            if name == "len":
+                step, _ = prosody_trainer.make_len_steps(m, (4.0, 2.0), opt)
+            else:
+                step, _ = prosody_trainer.make_pitch_steps(m, id2mean.to(d, dtype),
+                                                           id2std.to(d, dtype), opt)
+            metrics = step(vals, target.to(dtype), spk_ids)
+            runs[tag] = (float(metrics["Loss" if name == "len" else "loss"]),
+                         {k: v.detach().cpu() for k, v in m.state_dict().items()},
+                         {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()})
+        (ref_loss, _, ref_g), (cpu_loss, cpu_sd, cpu_g), (card_loss, card_sd, card_g) = (
+            runs["cpu64"], runs["cpu"], runs["card"])
+        row = {"loss_cpu64": ref_loss, "loss_cpu": cpu_loss, "loss_card": card_loss,
+               "loss_rel_err": abs(card_loss - cpu_loss) / abs(cpu_loss),
+               "grad_rel_err_card": 0.0, "grad_rel_err_cpu": 0.0, "grad_worse_than_cpu": [],
+               "param_sign_fixed_max_abs_err": 0.0, "param_sign_free_max_move": 0.0,
+               "sign_free_entries": 0, "entries": 0, "running_stats_max_abs_err": 0.0}
+        for k, v in cpu_sd.items():
+            if k not in cpu_g:  # buffers: running statistics, num_batches_tracked
+                err = float((card_sd[k] - v).abs().max()) if v.is_floating_point() else (
+                    0.0 if torch.equal(card_sd[k], v) else float("inf"))
+                row["running_stats_max_abs_err"] = max(row["running_stats_max_abs_err"], err)
+                continue
+            g_max = float(ref_g[k].abs().max())
+            e_card = float((card_g[k] - ref_g[k]).abs().max())
+            e_cpu = float((cpu_g[k] - ref_g[k]).abs().max())
+            if not _pre_bn_bias(model, k):
+                row["grad_rel_err_card"] = max(row["grad_rel_err_card"], e_card / g_max)
+                row["grad_rel_err_cpu"] = max(row["grad_rel_err_cpu"], e_cpu / g_max)
+                if e_card > 2 * e_cpu + 1e-6 * g_max:
+                    row["grad_worse_than_cpu"].append([k, e_card / g_max, e_cpu / g_max])
+            fixed = ref_g[k].abs() > max(e_card, e_cpu)
+            diff = (card_sd[k] - v).abs()
+            move = torch.maximum((v - before[k]).abs(), (card_sd[k] - before[k]).abs())
+            row["entries"] += v.numel()
+            row["sign_free_entries"] += int((~fixed).sum())
+            if fixed.any():
+                row["param_sign_fixed_max_abs_err"] = max(row["param_sign_fixed_max_abs_err"],
+                                                          float(diff[fixed].max()))
+            if (~fixed).any():
+                row["param_sign_free_max_move"] = max(row["param_sign_free_max_move"],
+                                                      float(move[~fixed].max()))
+        worst[name] = row
+        check(row["loss_rel_err"] <= 1e-4, f"{name} train step loss card vs CPU: {row}")
+        check(row["running_stats_max_abs_err"] <= 1e-5, f"{name} running stats: {row}")
+        check(not row["grad_worse_than_cpu"], f"{name} gradients on the card: {row}")
+        check(row["param_sign_fixed_max_abs_err"] <= 1e-5, f"{name} parameters: {row}")
+        check(row["param_sign_free_max_move"] <= lr + 1e-6, f"{name} moves: {row}")
+    return worst
+
+
+def vocoder_loop_card_vs_cpu(root: str, dev: torch.device) -> float:
+    """(c) two ``train_vocoder`` steps of a small config on the CPU and on the
+    card, from the same seed over the same crops: losses rtol 1e-3 (AdamW's
+    first update is about lr * sign(grad), as in ``train_reference_check``)."""
+    small = os.path.join(root, "small")
+    os.makedirs(small)
+    manifests = write_vocoder_corpus(small, n=4, n_val=2, seconds=(0.05, 0.2), seed=15)
+    config = write_vocoder_config(small, manifests, upsample_initial_channel=32, embedding_dim=8,
+                                  model_in_dim=17, segment_size=1280, batch_size=2,
+                                  mpd_periods=[2, 3], msd_scales=2)
+    h = VocoderConfig.from_json(config)
+    runs = []
+    for i, d in enumerate(("cpu", dev)):
+        metrics = []
+        with recorded_steps(metrics):
+            vocoder_trainer.train_vocoder(h, os.path.join(small, f"ckpt_{i}"), training_steps=2,
+                                          device=d)
+        runs.append([{k: float(v) for k, v in m.items()} for m in metrics])
+    worst = 0.0
+    for cpu_m, card_m in zip(*runs):
+        for k, ref in cpu_m.items():
+            worst = max(worst, abs(card_m[k] - ref) / max(abs(ref), 1e-6))
+            check(abs(card_m[k] - ref) <= 1e-3 * abs(ref) + 1e-5,
+                  f"train_vocoder {k}: card {card_m[k]} vs CPU {ref}")
+    check(len(runs[1]) == 2, "two small train_vocoder steps")
+    return worst
+
+
+def train_loop_phase(h: VocoderConfig, dev: torch.device) -> int:
+    """Phase 6; returns K1's launches over the vocoder loop's two runs."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        t0 = time.perf_counter()
+        launches = vocoder_loop(h, root, dev)
+        t1 = time.perf_counter()
+        prosody_loop(root, dev)
+        t2 = time.perf_counter()
+        steps = prosody_step_card_vs_cpu(root, dev)
+        voc_worst = vocoder_loop_card_vs_cpu(root, dev)
+        print("train loop (c) card vs CPU", json.dumps({
+            "prosody_steps": steps, "train_vocoder_worst_relative_loss_error": voc_worst}),
+            flush=True)
+        print(f"train loop: vocoder {t1 - t0:.1f} s, prosody {t2 - t1:.1f} s, "
+              f"card vs CPU {time.perf_counter() - t2:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -660,11 +1126,16 @@ def main() -> int:
     convert_phase(h, gen_state, dev)
     check(mel_kernel.launch_counts["mel_spectrogram"] == 0,
           "the conversion path launched no kernel of the port")
+    del gen_state
+    torch.cuda.empty_cache()
+
+    loop_launches = train_loop_phase(h, dev)
 
     kernels = [{"name": "mel_spectrogram", "route": "cuda",
                 "source": "dissc_tpu_torch/csrc/mel_kernel.cu",
                 "replaces": "dissc_tpu/kernels/mel_kernel.py:112",
-                "launches": launches, "max_abs_err": mel_row["max_abs_err"],
+                "launches": loop_launches, "launches_gan_steps": launches,
+                "max_abs_err": mel_row["max_abs_err"],
                 "grad_max_abs_err": mel_row["grad_max_abs_err"],
                 "ms": mel_row["ms"], "kernel_ms": mel_row["kernel_ms"],
                 "plain_ms": mel_row["plain_ms"],

@@ -308,3 +308,17 @@ def yaapt_f0_batch(audio: np.ndarray, sr: int = 16000, interp: bool = False,
     """[B, T] -> [B, 1, F] like the reference's ``get_yaapt_f0`` vstack."""
     outs = [yaapt_f0(a, sr, interp, device=device)[None, None, :] for a in np.atleast_2d(audio)]
     return np.vstack(outs)
+
+
+def f0_per_unit(f0_5ms: np.ndarray, n: int, per: int = 4) -> np.ndarray:
+    """5 ms frames -> ``n`` unit frames of ``per`` frames each (200 Hz -> 50 Hz
+    at 16 kHz): the median of the voiced values of each block, where at
+    least two are voiced, else 0 (the unit encoder's rule, as in
+    ``dissc_tpu.models.hubert.SpeechUnitEncoder``)."""
+    f0_5ms = np.pad(f0_5ms, (0, max(0, per * n - len(f0_5ms))))[: per * n]
+    f0 = np.zeros(n, np.float32)
+    for i, b in enumerate(f0_5ms.reshape(n, per)):
+        voiced = b[b > 0]
+        f0[i] = np.median(voiced) if voiced.size >= 2 else 0.0
+    return f0
+

@@ -1,8 +1,9 @@
 """Configuration: the vocoder hyper-parameters and the reference JSON schema.
 
 A copy of ``dissc_tpu.core.config`` (``AttrDict``, ``load_config``,
-``VocoderConfig``) that imports nothing of the JAX package, so the port
-reads the same ``config.json`` files (``sr/configs/{VCTK,ESD}/hubert100_lut.json``).
+``build_env``, ``VocoderConfig``, ``ProsodyConfig``) that imports nothing
+of the JAX package, so the port reads the same ``config.json`` files
+(``sr/configs/{VCTK,ESD}/hubert100_lut.json``).
 
 Knobs of the JAX package fall in three groups here:
 
@@ -25,6 +26,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 from typing import Any, Optional, Sequence
 
 _F32_NAMES = (None, "float32", "f32")
@@ -41,6 +44,14 @@ class AttrDict(dict):
 def load_config(path: str) -> AttrDict:
     with open(path) as f:
         return AttrDict(json.load(f))
+
+
+def build_env(config_path: str, config_name: str, out_dir: str) -> None:
+    """Copy the config-of-record into the checkpoint dir (reference ``sr/utils.py:70-75``)."""
+    target = os.path.join(out_dir, config_name)
+    if config_path != target:
+        os.makedirs(out_dir, exist_ok=True)
+        shutil.copyfile(config_path, target)
 
 
 @dataclasses.dataclass
@@ -157,11 +168,19 @@ class VocoderConfig:
 
 @dataclasses.dataclass
 class ProsodyConfig:
-    """Widths of the rhythm and pitch predictors: the fields of
-    ``dissc_tpu.core.config.ProsodyConfig`` that ``build_pitch_model``
-    reads for inference (reference ``train_f0_predictor.py:111-121``).
-    The training fields (batch, rates, masking rates) come with the
-    prosody trainers."""
+    """Shared config of the rhythm and pitch trainers
+    (``dissc_tpu.core.config.ProsodyConfig`` without ``max_len``, which
+    nothing reads, and ``dp_axis``: the port trains on one device).
+    Defaults mirror the reference CLIs (``train_len_predictor.py:118-127``,
+    ``train_f0_predictor.py:111-121``)."""
 
+    n_tokens: int = 100
+    batch_size: int = 32
+    learning_rate: float = 3e-4
+    n_epochs: int = 30
+    seed: int = 42
+    model_type: str = "base"  # pitch model: "base" | "new"
     emb_size: int = 32
     hidden: int = 128
+    len_masking_rate: float = 0.2
+    pitch_masking_rate: float = 0.4

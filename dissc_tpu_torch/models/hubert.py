@@ -285,22 +285,11 @@ class SpeechUnitEncoder:
         return units[0] if wav.ndim == 1 else units
 
     def __call__(self, wav: np.ndarray, sr: int = 16000) -> Dict[str, list]:
-        from dissc_tpu_torch.audio.yaapt import yaapt_f0
+        from dissc_tpu_torch.audio.yaapt import f0_per_unit, yaapt_f0
 
         units = self.encode_units(wav)
         f0_5ms = yaapt_f0(wav, sr, device=self.device)
         return {"units": units.tolist(), "f0": f0_per_unit(f0_5ms, len(units)).tolist()}
-
-
-def f0_per_unit(f0_5ms: np.ndarray, n: int) -> np.ndarray:
-    """200 Hz -> 50 Hz: the median of the voiced values of each block of four
-    frames, where at least two are voiced, else 0."""
-    f0_5ms = np.pad(f0_5ms, (0, max(0, 4 * n - len(f0_5ms))))[: 4 * n]
-    f0 = np.zeros(n, np.float32)
-    for i, b in enumerate(f0_5ms.reshape(n, 4)):
-        voiced = b[b > 0]
-        f0[i] = np.median(voiced) if voiced.size >= 2 else 0.0
-    return f0
 
 
 def load_encoder(weights_path: str, codebook_path: str, cfg: HubertConfig = HubertConfig(),

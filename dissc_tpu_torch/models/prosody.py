@@ -8,11 +8,25 @@
   BatchNorm on the trunk and heads) -> a voicing logit and a whitened-f0
   regression per frame (reference ``model/pitch_predictor.py:41-176``).
 
-Inference only: BatchNorm runs in eval mode (eps 1e-5) and the train-time
-token masking is not ported.  Layout NCW; state-dict keys are the
-reference's, as ``compat.from_jax`` writes them.  ``length_mask``
-(``[B, L]`` bool) zeroes activations past each row's length after every
-block, so a padded batch equals each utterance run alone.
+Layout NCW; state-dict keys are the reference's, as ``compat.from_jax``
+writes them.  ``length_mask`` (``[B, L]`` bool) zeroes activations past
+each row's length after every block, so a padded batch equals each
+utterance run alone.
+
+In train mode (``module.train()``), as in the JAX models with
+``train=True``:
+
+* whole token-embedding vectors are zeroed per (batch, time) position with
+  probability ``masking_rate`` (reference ``model/len_predictor.py:37-39``);
+* the pitch model's ramp PE is followed by dropout at rate 0.4
+  (``LinearRampPE.dropout``, fixed in the JAX model too);
+* BatchNorm (:class:`FlaxBatchNorm`) normalises with the biased batch
+  variance and moves its running statistics as flax does: momentum 0.1
+  on the batch value, the *biased* variance, eps 1e-5.
+
+The masks come from the ``generator`` passed to ``forward`` (a
+``torch.Generator`` on the model's device), so a seeded trainer repeats
+its draws; JAX's draws come from its own PRNG and are not reproduced.
 """
 from __future__ import annotations
 
@@ -39,8 +53,43 @@ def _conv(in_ch: int, out_ch: int, k: int, generator: Optional[torch.Generator])
     return conv
 
 
-def _bn(ch: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(ch, eps=1e-5, momentum=0.1)
+class FlaxBatchNorm(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (eps 1e-5, same parameters, buffers and state-dict
+    keys) whose train-mode step is flax's ``BatchNorm``: the batch variance
+    is E[x^2] - E[x]^2 clipped at 0 (biased), and the running variance moves
+    toward that biased value.  ``nn.BatchNorm1d`` moves it toward the
+    unbiased one, n/(n-1) larger.  Eval mode is ``nn.BatchNorm1d``'s."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2))
+        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return (x - mean[:, None]) * scale[:, None] + self.bias[:, None]
+
+
+def _mask_embeddings(emb: torch.Tensor, keep_rate: float,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Zero whole per-position embedding vectors of ``[B, L, E]`` with
+    probability ``1 - keep_rate`` (the JAX ``_mask_embeddings``)."""
+    keep = torch.rand(emb.shape[:2], generator=generator, device=emb.device) <= keep_rate
+    return emb * keep[..., None]
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``, drawn from ``generator``."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def _masker(length_mask: Optional[torch.Tensor]):
@@ -50,13 +99,17 @@ def _masker(length_mask: Optional[torch.Tensor]):
     return lambda z: z.masked_fill(off, 0.0)
 
 
-def _embed_inputs(token_emb: Embed, spk_emb: Embed, seq: torch.Tensor, spk_id: torch.Tensor,
-                  pe: Optional["LinearRampPE"] = None) -> torch.Tensor:
-    """``[B, L]`` tokens, ``[B, 1]`` speakers -> ``[B, 2E, L]``."""
-    emb_seq = token_emb(seq)
-    emb_spk = spk_emb(spk_id).expand(-1, seq.shape[1], -1)
+def _embed_inputs(module: nn.Module, seq: torch.Tensor, spk_id: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``[B, L]`` tokens, ``[B, 1]`` speakers -> ``[B, 2E, L]``; in train
+    mode the token embeddings are masked (then the PE dropped out)."""
+    emb_seq = module.token_emb(seq)
+    if module.training:
+        emb_seq = _mask_embeddings(emb_seq, 1.0 - module.masking_rate, generator)
+    emb_spk = module.spk_emb(spk_id).expand(-1, seq.shape[1], -1)
+    pe = getattr(module, "pe", None)
     if pe is not None:
-        emb_spk = pe(emb_spk)
+        emb_spk = pe(emb_spk, generator)
     return torch.cat([emb_seq, emb_spk], dim=-1).transpose(1, 2)
 
 
@@ -64,24 +117,27 @@ class LenPredictor(nn.Module):
     """Per-run duration ("rhythm") predictor."""
 
     def __init__(self, n_tokens: int = 100, n_speakers: int = 99, emb_size: int = 32,
-                 hidden: int = 128, generator: Optional[torch.Generator] = None):
+                 hidden: int = 128, masking_rate: float = 0.2,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.n_tokens, self.masking_rate = n_tokens, masking_rate
         self.token_emb = Embed(n_tokens + 1, emb_size, padding_idx=n_tokens, generator=generator)
         self.spk_emb = Embed(n_speakers, emb_size, generator=generator)
         self.cnn1 = _conv(2 * emb_size, hidden, 3, generator)
-        self.bn1 = _bn(hidden)
+        self.bn1 = FlaxBatchNorm(hidden)
         for i in range(1, 7):
             setattr(self, f"cnn1{i}", _conv(hidden, hidden, 3, generator))
-            setattr(self, f"bn1{i}", _bn(hidden))
+            setattr(self, f"bn1{i}", FlaxBatchNorm(hidden))
         self.cnn2 = _conv(hidden, 1, 3, generator)
 
     def forward(self, seq: torch.Tensor, spk_id: torch.Tensor,
                 norm_stats: Tuple[float, float],
-                length_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                length_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``seq`` ``[B, L]`` (pad = n_tokens), ``spk_id`` ``[B, 1]``,
         ``norm_stats`` (mean, std) -> ``[B, L]`` float durations."""
         clamp = _masker(length_mask)
-        x = clamp(_embed_inputs(self.token_emb, self.spk_emb, seq, spk_id))
+        x = clamp(_embed_inputs(self, seq, spk_id, generator))
         x = clamp(F.leaky_relu(self.bn1(self.cnn1(x)), LEAKY_SLOPE))
         for i in range(1, 7):
             bn, conv = getattr(self, f"bn1{i}"), getattr(self, f"cnn1{i}")
@@ -94,21 +150,24 @@ class LenPredictor(nn.Module):
 class LinearRampPE(nn.Module):
     """Linear-ramp positional encoding (reference ``model/pitch_predictor.py:6-38``):
     the first half of the channels ramps 0 -> 1 over ``max_len`` positions,
-    the second half 1 -> 0.  Positions past ``max_len - 1`` hold the last
-    value, as in the JAX package (the reference's fixed buffer ends at 850;
-    conversion at bucket 1280 reaches 2560 frames)."""
+    the second half 1 -> 0, then dropout in train mode.  Positions past
+    ``max_len - 1`` hold the last value, as in the JAX package (the
+    reference's fixed buffer ends at 850; conversion at bucket 1280 reaches
+    2560 frames)."""
 
-    def __init__(self, d_model: int, max_len: int = PE_MAX_LEN):
+    def __init__(self, d_model: int, max_len: int = PE_MAX_LEN, dropout: float = 0.4):
         super().__init__()
-        self.d_model, self.max_len = d_model, max_len
+        self.d_model, self.max_len, self.dropout = d_model, max_len, dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         t = x.shape[1]
         pos = torch.arange(t, device=x.device).clamp(max=self.max_len - 1).float() / (self.max_len - 1)
         half = self.d_model // 2
         pe = torch.cat([pos[:, None].expand(t, half),
                         (1.0 - pos)[:, None].expand(t, self.d_model - half)], dim=-1)
-        return x + pe[None]
+        x = x + pe[None]
+        return _dropout(x, self.dropout, generator) if self.training else x
 
 
 class _PitchCore(nn.Module):
@@ -117,8 +176,10 @@ class _PitchCore(nn.Module):
     use_pe = trunk_bn = head_bn = neck_bn = False
 
     def __init__(self, n_tokens: int = 100, n_speakers: int = 199, emb_size: int = 32,
-                 hidden: int = 128, generator: Optional[torch.Generator] = None):
+                 hidden: int = 128, masking_rate: float = 0.4,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.n_tokens, self.masking_rate = n_tokens, masking_rate
         self.token_emb = Embed(n_tokens + 1, emb_size, padding_idx=n_tokens, generator=generator)
         self.spk_emb = Embed(n_speakers + 1, emb_size, padding_idx=n_speakers,
                              generator=generator)
@@ -139,10 +200,11 @@ class _PitchCore(nn.Module):
         if self.head_bn:
             bns += ["bn_c1", "bn_r1"]
         for name in bns:
-            setattr(self, name, _bn(hidden))
+            setattr(self, name, FlaxBatchNorm(hidden))
 
     def forward(self, seq: torch.Tensor, spk_id: torch.Tensor,
-                length_mask: Optional[torch.Tensor] = None
+                length_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``seq`` ``[B, L]``, ``spk_id`` ``[B, 1]`` -> (voicing logits,
         whitened f0), each ``[B, L]``."""
@@ -154,7 +216,7 @@ class _PitchCore(nn.Module):
                 z = getattr(self, bn_name)(z)
             return clamp(F.leaky_relu(z, LEAKY_SLOPE))
 
-        x = clamp(_embed_inputs(self.token_emb, self.spk_emb, seq, spk_id, self.pe))
+        x = clamp(_embed_inputs(self, seq, spk_id, generator))
         x = block(x, "cnn1", "bn1", self.trunk_bn)
         for i in range(1, 8):
             x = block(x, f"cnn1{i}", f"bn1{i}", self.trunk_bn)

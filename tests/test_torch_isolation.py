@@ -1,5 +1,7 @@
-"""The port stands alone: no JAX, no ``dissc_tpu``, nothing the card's
-machine lacks (``transformers``, ``pandas``), and no silent CPU run."""
+"""The port stands alone: no JAX, no ``dissc_tpu``, nothing beyond torch,
+numpy and scipy (no ``transformers``, ``pandas``, ``tensorboardX`` or
+``matplotlib``), no silent CPU run, and no silent switch away from the
+native loaders."""
 import pkgutil
 import subprocess
 import sys
@@ -20,7 +22,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package(tmp_path):
     modules = [m.name for m in pkgutil.walk_packages(dissc_tpu_torch.__path__,
                                                      "dissc_tpu_torch.")]
     for name in ("kernels.mel_kernel", "pipeline", "models.hubert", "models.prosody",
-                 "audio.yaapt", "audio.resample", "infer.prosody", "data.jsonl", "data.stats"):
+                 "audio.yaapt", "audio.resample", "infer.prosody", "data.jsonl", "data.stats",
+                 "core.wav", "core.seed", "data.native_build", "data.native_loader",
+                 "data.flac_native", "data.code_dataset", "data.datasets", "losses.len_loss",
+                 "losses.pitch_loss", "train.logging", "train.prosody_trainer",
+                 "train.vocoder_trainer", "compat.to_jax", "cli.sr_train", "cli.train_len",
+                 "cli.train_f0"):
         assert f"dissc_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -28,7 +35,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package(tmp_path):
         "    importlib.import_module(name)\n"
         "from dissc_tpu_torch import ConversionPipeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'dissc_tpu', 'transformers', 'pandas'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'dissc_tpu', 'transformers', 'pandas', "
+        "'tensorboardX', 'matplotlib'))\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120,
                    env={"PYTHONPATH": str(REPO), "HOME": str(tmp_path)})
@@ -76,6 +84,56 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_pa
     with pytest.raises(FileNotFoundError):  # with the CPU asked for, it goes on to read
         ConversionPipeline.load(str(tmp_path / "vocoder"), str(tmp_path / "id_to_spkr.pkl"),
                                 device="cpu")
+
+
+def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from dissc_tpu_torch.cli import sr_train, train_f0, train_len
+    from dissc_tpu_torch.core.config import ProsodyConfig
+    from dissc_tpu_torch.train.prosody_trainer import train_f0_predictor, train_len_predictor
+    from dissc_tpu_torch.train.vocoder_trainer import train_vocoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    h = VocoderConfig(input_training_file=missing, input_validation_file=missing)
+    calls = [lambda **kw: train_vocoder(h, str(tmp_path / "ckpt"), **kw),
+             lambda **kw: train_len_predictor(missing, str(tmp_path / "out"), ProsodyConfig(),
+                                              **kw),
+             lambda **kw: train_f0_predictor(missing, missing, str(tmp_path / "out"), **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        with pytest.raises(FileNotFoundError):  # with the CPU asked for, it goes on to read
+            call(device="cpu")
+    argv = {sr_train: ["--config", missing, "--checkpoint_path", str(tmp_path / "c")],
+            train_len: ["--data_path", missing, "--out_path", str(tmp_path / "l")],
+            train_f0: ["--data_path", missing, "--f0_path", missing,
+                       "--out_path", str(tmp_path / "f")]}
+    for cli, args in argv.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(args)
+        with pytest.raises(FileNotFoundError):
+            cli.main(args + ["--device", "cpu"])
+    assert not (tmp_path / "c").exists()  # refused before it wrote anything
+
+
+@pytest.mark.parametrize("binding", ["native_loader", "flac_native"])
+def test_native_binding_raises_when_its_build_fails(binding, monkeypatch, tmp_path):
+    """No silent switch to a numpy path: a missing compiler is an error."""
+    import importlib
+
+    from dissc_tpu_torch.data import native_build
+
+    module = importlib.import_module(f"dissc_tpu_torch.data.{binding}")
+    monkeypatch.setattr(native_build, "CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native_build, "_loaded", {})
+    path = str(tmp_path / "x.wav")
+    with pytest.raises(RuntimeError, match="no-such-g"):
+        if binding == "native_loader":
+            module.load_crops([path], [0], 16)
+        else:
+            module.read_flac(path)
+    assert not (tmp_path / "build").exists() or not list((tmp_path / "build").iterdir())
 
 
 @pytest.mark.parametrize("knob", [dict(compute_dtype="bfloat16"),
