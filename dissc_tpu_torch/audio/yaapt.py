@@ -35,6 +35,7 @@ from dissc_tpu_torch.device import DeviceLike, resolve_device
 
 F0_MIN = 60.0
 F0_MAX = 400.0
+BAND_HZ = (50.0, 1500.0)  # the FIR prefilter's pass band; the rate's Nyquist must exceed it
 N_CANDS = 5
 # NCCF cross terms are computed a chunk of lags at a time, so that no
 # [frames, lags, frame_len] tensor is built whole (0.6 GB at 10 s)
@@ -42,7 +43,7 @@ _CROSS_CHUNK_ELEMS = 1 << 23
 
 
 @functools.lru_cache(maxsize=4)
-def _bandpass_fir(sr: int, lo: float = 50.0, hi: float = 1500.0, ntaps: int = 151):
+def _bandpass_fir(sr: int, lo: float = BAND_HZ[0], hi: float = BAND_HZ[1], ntaps: int = 151):
     from scipy.signal import firwin
 
     return firwin(ntaps, [lo, hi], fs=sr, pass_zero=False).astype(np.float32)

@@ -44,6 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Train; returns :func:`train_vocoder`'s ``(trainer, stats)``."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)  # refuse before touching a file
     h = VocoderConfig.from_json(args.config)

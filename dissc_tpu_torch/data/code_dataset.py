@@ -17,11 +17,12 @@ Two differences from the JAX package, both about failures:
   path;
 * the YAAPT fallback for a crop without manifest pitch runs the port's
   :func:`~dissc_tpu_torch.audio.yaapt.yaapt_f0` on ``f0_device`` and
-  catches only ``ValueError``, what the JAX tracker raises for an input it
-  cannot take (scipy's band-pass design refuses a sampling rate whose
-  Nyquist frequency is at or under its 1500 Hz edge).  The JAX package
-  catches every exception and trains on zero f0; here a CUDA or build
-  error propagates.
+  catches nothing.  The one input the JAX tracker cannot take is a
+  sampling rate whose Nyquist frequency is at or under its band-pass's
+  1500 Hz edge (scipy's ``firwin`` raises ``ValueError``); the dataset
+  decides that from its rate once and gives such crops zero f0.  The JAX
+  package catches every exception and trains on zero f0; here every error
+  of the tracker, a CUDA or build error included, propagates.
 
 And one about the fallback's rate: the JAX package returns YAAPT's 5 ms
 track (4 values a code frame at 16 kHz), which the LUT generator answers
@@ -43,6 +44,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from dissc_tpu_torch.core.wav import normalize_audio_int16, read_wav
+from dissc_tpu_torch.audio import yaapt
 from dissc_tpu_torch.device import DeviceLike
 
 
@@ -100,22 +102,13 @@ class CodeDataset:
         f0_stats: Optional[Dict] = None,
         f0_normalize: bool = False,
         f0_median: bool = False,
-        pad: Optional[int] = None,
         id_to_spkr: Optional[List[str]] = None,
-        eval_mode: bool = False,
-        unseen_speakers: bool = False,
         seed: int = 1234,
-        cache_audio: bool = False,
         f0_device: DeviceLike = None,
     ):
-        """``cache_audio``: keep decoded+normalised waveforms in RAM after
-        first access (the reference's ``n_cache_reuse`` served a similar
-        role per-worker; a whole VCTK fits in a few GB at 16 kHz f32).
-        ``f0_device``: where the YAAPT fallback runs (``None``: the CUDA
+        """``f0_device``: where the YAAPT fallback runs (``None``: the CUDA
         card, raising without one)."""
         self.audio_files, self.codes, self.pitch = files
-        self.cache_audio = cache_audio
-        self._audio_cache: Dict[int, np.ndarray] = {}
         self.segment_size = segment_size
         self.code_hop_size = code_hop_size
         self.sampling_rate = sampling_rate
@@ -124,11 +117,11 @@ class CodeDataset:
         self.f0_stats = f0_stats
         self.f0_normalize = f0_normalize
         self.f0_median = f0_median
-        self.pad = pad
-        self.eval_mode = eval_mode
-        self.unseen_speakers = unseen_speakers
         self._rng = random.Random(seed)
         self.f0_device = f0_device
+        # YAAPT's band-pass needs a Nyquist frequency above its upper edge;
+        # scipy's firwin refuses the design otherwise
+        self._yaapt_takes_rate = sampling_rate / 2 > yaapt.BAND_HZ[1]
 
         if self.multispkr:
             if id_to_spkr:
@@ -147,9 +140,6 @@ class CodeDataset:
             from dissc_tpu_torch.audio.resample import resample_poly_np
 
             audio = resample_poly_np(audio.astype(np.float64), sr, self.sampling_rate)
-        if self.pad:
-            padding = self.pad - (audio.shape[-1] % self.pad)
-            audio = np.pad(audio, (0, padding), "constant")
         return normalize_audio_int16(audio)
 
     def _sample_interval(self, seqs: Sequence[np.ndarray], seq_len: Optional[int] = None):
@@ -171,22 +161,12 @@ class CodeDataset:
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         filename = self.audio_files[index]
-        if self.cache_audio and index in self._audio_cache:
-            audio = self._audio_cache[index]
-        else:
-            audio = self._load_audio(filename)
-            if self.cache_audio:
-                self._audio_cache[index] = audio
-
+        audio = self._load_audio(filename)
         code_length = min(audio.shape[0] // self.code_hop_size, self.codes[index].shape[0])
-        code = self.codes[index]
-        if not self.eval_mode:
-            code = code[:code_length]
-            audio = audio[: code_length * self.code_hop_size]
-            pitch = self.pitch[index][:code_length] if self.pitch else np.zeros(0, np.float32)
-            assert audio.shape[0] // self.code_hop_size == code.shape[0], "Code audio mismatch"
-        else:
-            pitch = self.pitch[index] if self.pitch else np.zeros(0, np.float32)
+        code = self.codes[index][:code_length]
+        audio = audio[: code_length * self.code_hop_size]
+        pitch = self.pitch[index][:code_length] if self.pitch else np.zeros(0, np.float32)
+        assert audio.shape[0] // self.code_hop_size == code.shape[0], "Code audio mismatch"
 
         # tile-repeat short clips to the training segment
         while audio.shape[0] < self.segment_size:
@@ -194,9 +174,7 @@ class CodeDataset:
             code = np.hstack([code, code])
             pitch = np.hstack([pitch, pitch])
 
-        if self.eval_mode:
-            feats_audio = audio.astype(np.float32)
-        elif pitch.shape[0]:
+        if pitch.shape[0]:
             audio_c, code, pitch = self._sample_interval(
                 [audio[None, :], code, pitch]
             )
@@ -217,10 +195,7 @@ class CodeDataset:
 
         if self.multispkr:
             spkr_name = parse_speaker(filename, self.multispkr)
-            if self.unseen_speakers:
-                feats["spkr"] = np.array([0], np.int32)
-            else:
-                feats["spkr"] = np.array([self.spkr_to_id[spkr_name]], np.int32)
+            feats["spkr"] = np.array([self.spkr_to_id[spkr_name]], np.int32)
 
         if self.f0_normalize and self.f0:
             spkr_name = parse_speaker(filename, self.multispkr)
@@ -247,18 +222,14 @@ class CodeDataset:
         """``[F, 1]`` f0 of one crop at the code rate: YAAPT's 5 ms track
         pooled per code frame as the unit encoder pools it
         (:func:`~dissc_tpu_torch.audio.yaapt.f0_per_unit`), so the crop's f0
-        is what a manifest would carry.  Zeros where the tracker cannot take
-        the crop (the ``ValueError`` of its band-pass design); any other
-        error propagates."""
-        from dissc_tpu_torch.audio.yaapt import f0_per_unit, yaapt_f0
-
+        is what a manifest would carry.  Zeros at a sampling rate the
+        tracker cannot take; every error of the tracker propagates."""
         frames = audio.shape[0] // self.code_hop_size
-        try:
-            f0_5ms = yaapt_f0(audio, self.sampling_rate, device=self.f0_device)
-        except ValueError:
+        if not self._yaapt_takes_rate:
             return np.zeros((frames, 1), np.float32)
+        f0_5ms = yaapt.yaapt_f0(audio, self.sampling_rate, device=self.f0_device)
         per = self.code_hop_size * 200 // self.sampling_rate  # 5 ms frames a code frame
-        return f0_per_unit(f0_5ms, frames, per).reshape(-1, 1)
+        return yaapt.f0_per_unit(f0_5ms, frames, per).reshape(-1, 1)
 
     def batches(self, batch_size: int, shuffle: bool, seed: int = 0,
                 use_native: bool = True, drop_last: bool = True) -> Iterator[Dict]:
@@ -268,10 +239,7 @@ class CodeDataset:
         loader (``native/wavloader.cc``; raises if it cannot be built) —
         crop *sampling* stays here so the draw sequence is identical on
         both paths; only decode/normalise/copy moves to native threads.
-        ``cache_audio`` and ``pad`` take the Python path, as in the JAX
-        package (the RAM cache is the fast path once warm).
         """
-        native = use_native and self.pad is None and not self.cache_audio
         order = np.arange(len(self))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
@@ -282,7 +250,7 @@ class CodeDataset:
             order = np.resize(order, -(-len(order) // batch_size) * batch_size)
         for start in range(0, len(order) - batch_size + 1, batch_size):
             idxs = order[start : start + batch_size]
-            if not native:
+            if not use_native:
                 items = [self[i] for i in idxs]
                 batch = {
                     "code": np.stack([it["code"] for it in items]),
@@ -346,8 +314,7 @@ class CodeDataset:
                 f0s.append(pitch[start_step : start_step + seg_frames]
                            .reshape(-1, 1).astype(np.float32))
             spkr_name = parse_speaker(self.audio_files[i], self.multispkr)
-            spkrs.append(np.array(
-                [0 if self.unseen_speakers else self.spkr_to_id[spkr_name]], np.int32))
+            spkrs.append(np.array([self.spkr_to_id[spkr_name]], np.int32))
 
         native_rows = [j for j, p in enumerate(paths) if p is not None]
         audio = np.zeros((len(idxs), seg), np.float32)

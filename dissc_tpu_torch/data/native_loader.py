@@ -23,6 +23,7 @@ import numpy as np
 
 from dissc_tpu_torch.data import native_build
 
+N_THREADS = 8  # decode threads of one load_crops call
 call_counts = {"load_crops": 0}
 
 
@@ -79,7 +80,7 @@ def load_normalized(path: str) -> Tuple[np.ndarray, int]:
 
 
 def load_crops(paths: Sequence[str], starts: Sequence[int], crop_len: int,
-               eff_lens: Optional[Sequence[int]] = None, n_threads: int = 8) -> np.ndarray:
+               eff_lens: Optional[Sequence[int]] = None) -> np.ndarray:
     """``[len(paths), crop_len]`` float batch of normalised crops, wrapping
     modulo ``eff_lens[i]`` (the code-aligned trim; <= 0 = the whole file).
     Raises ``IOError`` naming the files the C++ side could not decode."""
@@ -91,7 +92,7 @@ def load_crops(paths: Sequence[str], starts: Sequence[int], crop_len: int,
     c_starts = (ctypes.c_long * n)(*[int(s) for s in starts])
     c_lens = (ctypes.c_long * n)(*[int(v) for v in eff])
     n_failed = lib.wav_load_crops(c_paths, n, c_starts, c_lens, crop_len,
-                                  out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n_threads)
+                                  out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), N_THREADS)
     if n_failed:
         # the C++ side zero-fills failed rows: name them rather than train on silence
         bad = [p for p in paths if not os.path.exists(p) or wav_info(p)[1] <= 0]

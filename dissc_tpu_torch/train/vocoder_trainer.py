@@ -71,6 +71,8 @@ from dissc_tpu_torch.train.checkpoints import (load_checkpoint, save_checkpoint,
 from dissc_tpu_torch.train.logging import MetricLogger
 
 Batch = Dict[str, torch.Tensor]
+MAX_VAL_BATCHES = 10  # validation batches per validation (the JAX loop's cap)
+PREFETCH_DEPTH = 2  # batches the host thread runs ahead of the loop
 
 
 def make_models(h: VocoderConfig, seed: Optional[int] = None
@@ -143,7 +145,6 @@ class GANTrainer:
         self.opt_d = adamw(list(self.mpd.parameters()) + list(self.msd.parameters()))
         self.mel_fn = pick_mel_fn(h, self.device)
         self.step = 0
-        self.loop_stats: Dict[str, Any] = {}  # filled by train_vocoder
         self._set_lr()
 
     def _set_lr(self) -> None:
@@ -243,7 +244,7 @@ def _from_host(tree: Any) -> Any:
 
 
 class Prefetcher:
-    """Runs ``batches`` on a host thread, up to ``depth`` batches ahead of
+    """Runs ``batches`` on a host thread, up to ``PREFETCH_DEPTH`` batches ahead of
     the loop (the reference's DataLoader workers, minus the processes).
 
     An exception in the worker is raised from the iterator, where the loop
@@ -255,9 +256,8 @@ class Prefetcher:
 
     _END = object()
 
-    def __init__(self, batches: Iterable[Dict[str, np.ndarray]], depth: int = 2,
-                 pin: bool = False):
-        self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
+    def __init__(self, batches: Iterable[Dict[str, np.ndarray]], pin: bool = False):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
         self._stop = threading.Event()
         self._pin = pin
         self.wait_s = 0.0
@@ -316,14 +316,14 @@ def train_vocoder(
     checkpoint_interval: int = 10000,
     summary_interval: int = 100,
     validation_interval: int = 1000,
-    max_val_batches: int = 10,
     device: DeviceLike = None,
-) -> GANTrainer:
+) -> Tuple[GANTrainer, Dict[str, Any]]:
     """Full training loop with resume, checkpoints and validation; returns
-    the trainer.  Defaults mirror the reference CLI (``sr/train.py:293-308``).
-    ``device=None`` trains on the CUDA card and raises without one.
+    the trainer and the run's stats.  Defaults mirror the reference CLI
+    (``sr/train.py:293-308``).  ``device=None`` trains on the CUDA card and
+    raises without one.
 
-    ``trainer.loop_stats`` records this call's run on the host clock:
+    The stats record this call's run on the host clock:
     ``start_step``; ``step_s``, each step from the end of the last one's
     checkpoint and validation, the wait for its batch included (a step
     that prints its losses, every ``stdout_interval``, waits for the card
@@ -355,9 +355,8 @@ def train_vocoder(
     if cp_g and cp_do:
         last_epoch = trainer.restore(cp_g, cp_do)
         print(f"Resumed from {cp_g} at step {trainer.step}")
-    stats = trainer.loop_stats
-    stats.update(start_step=trainer.step, step_s=[], prefetch_wait_s=0.0, checkpoint_s=[],
-                 validation_s=[], wall_s=0.0)
+    stats: Dict[str, Any] = dict(start_step=trainer.step, step_s=[], prefetch_wait_s=0.0,
+                                 checkpoint_s=[], validation_s=[], wall_s=0.0)
     logger = MetricLogger(os.path.join(checkpoint_path, "logs"))
 
     def save_all(epoch: int) -> None:
@@ -373,7 +372,7 @@ def train_vocoder(
         val_bs = max(1, min(h.batch_size, len(ds_val)))
         errs = []
         for i, vbatch in enumerate(ds_val.batches(val_bs, shuffle=False, drop_last=False)):
-            if i >= max_val_batches:
+            if i >= MAX_VAL_BATCHES:
                 break
             err, y_hat = trainer.val_step(_device_batch(vbatch, dev))
             errs.extend(err.cpu().tolist())
@@ -436,4 +435,4 @@ def train_vocoder(
     finally:
         stats["wall_s"] = time.perf_counter() - start
         logger.close()
-    return trainer
+    return trainer, stats

@@ -64,8 +64,9 @@ def test_sr_train_cli_trains_on_the_cpu(tmp_path):
     root = tmp_path / "corpus"
     os.makedirs(root)
     config = write_config(root, write_code_corpus(root, n_files=2, seconds=(0.05, 0.1), n_val=1))
-    trainer = sr_train.main(["--config", config, "--checkpoint_path", str(tmp_path / "ckpt"),
-                             "--training_steps", "1", "--device", "cpu"])
+    trainer, _ = sr_train.main(["--config", config, "--checkpoint_path",
+                                str(tmp_path / "ckpt"), "--training_steps", "1",
+                                "--device", "cpu"])
     assert trainer.step == 1 and trainer.device.type == "cpu"
     assert {"config.json", "g_00000001", "do_00000001", "id_to_spkr.pkl"} <= set(
         os.listdir(tmp_path / "ckpt"))

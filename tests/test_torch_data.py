@@ -253,20 +253,28 @@ def test_code_dataset_yaapt_fallback_is_jax_pooled_to_the_code_rate(corpus):
 def test_yaapt_fallback_catches_only_what_the_tracker_raises(corpus, monkeypatch):
     root, _, val = corpus
     files = tcd.parse_manifest(val, str(root))
-    ds = tcd.CodeDataset(files, 2560, 320, 2000, f0_device="cpu")
     crop = np.random.default_rng(0).standard_normal(2560).astype(np.float32)
-    # 2 kHz: the tracker's 50-1500 Hz band-pass cannot be designed (ValueError)
-    np.testing.assert_array_equal(ds._yaapt(crop), np.zeros((8, 1), np.float32))
     from dissc_tpu_torch.audio import yaapt
 
-    def broken(*a, **k):
-        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+    # 2 kHz: the JAX tracker's 50-1500 Hz band-pass cannot be designed
+    # (scipy raises ValueError), so the dataset gives zeros without calling it
+    with pytest.raises(ValueError):
+        yaapt._bandpass_fir(2000)
+    yaapt._bandpass_fir(3001)
+    ds = tcd.CodeDataset(files, 2560, 320, 2000, f0_device="cpu")
+    np.testing.assert_array_equal(ds._yaapt(crop), np.zeros((8, 1), np.float32))
 
-    monkeypatch.setattr(yaapt, "yaapt_f0", broken)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        ds._yaapt(crop)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        next(tcd.CodeDataset(files, 2560, 320, SR, f0_device="cpu").batches(2, shuffle=False))
+    ds = tcd.CodeDataset(files, 2560, 320, SR, f0_device="cpu")
+    for err in (RuntimeError("CUDA error: an illegal memory access was encountered"),
+                ValueError("operands could not be broadcast together")):
+        def broken(*a, err=err, **k):
+            raise err
+
+        monkeypatch.setattr(yaapt, "yaapt_f0", broken)
+        with pytest.raises(type(err), match=str(err)[:10]):
+            ds._yaapt(crop)
+        with pytest.raises(type(err), match=str(err)[:10]):
+            next(tcd.CodeDataset(files, 2560, 320, SR, f0_device="cpu").batches(2, shuffle=False))
 
 
 # ---- stats and the prosody datasets -----------------------------------------------

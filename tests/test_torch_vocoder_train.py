@@ -96,10 +96,11 @@ def test_every_step_takes_the_schedule_across_epochs_and_resume(toy, tmp_path, m
         return step_fn(self, batch)
 
     monkeypatch.setattr(vocoder_trainer.GANTrainer, "train_step", recording)
-    first = run_cli(config, tmp_path, 3, checkpoint_interval=100, validation_interval=100)
+    first, _ = run_cli(config, tmp_path, 3, checkpoint_interval=100, validation_interval=100)
     assert [s for s, _, _ in seen] == list(range(3))
-    second = run_cli(config, tmp_path, 7, checkpoint_interval=100, validation_interval=100)
-    assert second.loop_stats["start_step"] == 3 and second.step == 7
+    second, stats = run_cli(config, tmp_path, 7, checkpoint_interval=100,
+                            validation_interval=100)
+    assert stats["start_step"] == 3 and second.step == 7
     assert [s for s, _, _ in seen] == list(range(7))  # epoch boundaries at 2, 4 and 6
     for step, lr_g, lr_d in seen:
         assert lr_g == lr_d == pytest.approx(float(sched(step)), rel=1e-6), step
@@ -147,7 +148,7 @@ def test_to_jax_inverts_from_jax_for_the_prosody_models(model):
 def test_loop_checkpoint_serves_in_both_packages_and_resume_is_exact(toy, tmp_path):
     root, config = toy
     h = VocoderConfig.from_json(config)
-    trained = run_cli(config, tmp_path, 3, checkpoint_interval=2, validation_interval=2)
+    trained, _ = run_cli(config, tmp_path, 3, checkpoint_interval=2, validation_interval=2)
     names = sorted(os.listdir(tmp_path))
     for name in ("config.json", "id_to_spkr.pkl", "g_00000002", "do_00000002", "g_00000003",
                  "do_00000003"):
@@ -175,8 +176,8 @@ def test_loop_checkpoint_serves_in_both_packages_and_resume_is_exact(toy, tmp_pa
     assert np.abs(direct.numpy() - np.asarray(got)).max() < 1e-4
 
     # a finished run resumes to exactly the saved state and returns at once
-    resumed = run_cli(config, tmp_path, 3)
-    assert resumed.step == trained.step == 3 and resumed.loop_stats["step_s"] == []
+    resumed, stats = run_cli(config, tmp_path, 3)
+    assert resumed.step == trained.step == 3 and stats["step_s"] == []
     for a, b in ((trained.gen, resumed.gen), (trained.mpd, resumed.mpd),
                  (trained.msd, resumed.msd)):
         sa, sb = a.state_dict(), b.state_dict()
