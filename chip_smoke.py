@@ -45,7 +45,19 @@ HuBERT-base, with weights drawn from a fixed seed:
    epochs on 107 speakers, 4,096 train and 256 val records, then
    ``ProsodyConverter.load`` converts the val records on the card; (c) the
    card against the CPU: one rhythm and one pitch train step, and two
-   ``train_vocoder`` steps at a small config.
+   ``train_vocoder`` steps at a small config;
+7. convert + eval, the offline conversion-and-evaluation path through its
+   CLIs, with the launch counters set to 0 just before and read just after
+   (it launches no kernel of the port): a seeded VCTK-shaped corpus (4
+   speakers x 2 utterances of 2-5 s at 48 / 22.05 kHz, transcripts, FLAC
+   ground truth) through ``cli.preprocess --trim --pad``, ``cli.encode``
+   (HuBERT-base) and ``cli.prep_dataset``, then ``cli.convert_eval --data
+   vctk --dissc_type dissc_b --sort_gt --dtw_align --whisper_model`` with
+   the prosody models at ``ProsodyConfig()``, ``VocoderConfig()`` and
+   Whisper medium.en written from seeds as a local HF directory; every
+   output, DTW grid and metric checked, every stage timed; (c) the card
+   against the CPU (``run_inference``, ``calc_errors``, Whisper at a
+   reduced config); (d) Whisper medium.en's encoder and decode step timed.
 
 It exits non-zero on any failure and without a card.  The line before
 the last is the ``kernels`` JSON object; the last line is
@@ -56,9 +68,11 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import glob
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1156,6 +1170,470 @@ def train_loop_phase(h: VocoderConfig, dev: torch.device) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 7. convert + eval: data prep, conversion and the paper's metrics, through the CLIs
+# ---------------------------------------------------------------------------
+
+CE_SPEAKERS = {"p231": 6, "p239": 13, "p245": 18, "p270": 43}  # convert_eval --data vctk
+CE_SEQS = (1, 25)  # 001 falls in the paired val split (<= 24); 025 in train (the f0 stats)
+CE_N_SPEAKERS = 107
+CE_SENTENCES = ("Please call Stella.", "Ask her.", "Bring these things.", "Snow peas.")
+
+
+def _crc(data: bytes, poly: int, bits: int) -> int:
+    crc, top, mask = 0, 1 << (bits - 1), (1 << bits) - 1
+    for byte in data:
+        crc ^= byte << (bits - 8)
+        for _ in range(8):
+            crc = ((crc << 1) ^ poly) & mask if crc & top else (crc << 1) & mask
+    return crc
+
+
+def write_flac16(path: str, x: np.ndarray, sr: int, block: int = 4096) -> None:
+    """Mono 16-bit FLAC of verbatim subframes (VCTK's ground truth is FLAC):
+    STREAMINFO, then frames of ``block`` samples, each with its header
+    CRC-8 and frame CRC-16."""
+    pcm = np.round(np.clip(np.asarray(x, np.float64), -1, 1) * 32767).astype(">i2")
+    n = len(pcm)
+    check(n <= 127 * block, "write_flac16: one-byte frame numbers")
+    info = (block.to_bytes(2, "big") * 2 + b"\0" * 6
+            + ((sr << 44) | (15 << 36) | n).to_bytes(8, "big") + b"\0" * 16)
+    out = [b"fLaC", bytes([0x80, 0, 0, 34]), info]
+    for k, start in enumerate(range(0, n, block)):
+        chunk = pcm[start:start + block]
+        head = bytes([0xFF, 0xF8, 0x70, 0x08, k]) + (len(chunk) - 1).to_bytes(2, "big")
+        frame = head + bytes([_crc(head, 0x07, 8)]) + b"\x02" + chunk.tobytes()
+        out.append(frame + _crc(frame, 0x8005, 16).to_bytes(2, "big"))
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
+def write_vctk_corpus(root: str, seconds=(2.0, 5.0), seed: int = 15) -> list:
+    """``raw/<spk>/<spk>_<seq>_mic2.wav`` at 48 or 22.05 kHz (``seconds`` long,
+    from the voiced-stretch probe: tones at known f0 between noise and
+    silence) and ``data/VCTK/txt/<spk>/<spk>_<seq>.txt`` for the four
+    speakers and ``CE_SEQS``; returns the stems."""
+    rng = np.random.default_rng(seed)
+    stems = []
+    for i, spk in enumerate(CE_SPEAKERS):
+        os.makedirs(f"{root}/raw/{spk}")
+        os.makedirs(f"{root}/data/VCTK/txt/{spk}")
+        for j, seq in enumerate(CE_SEQS):
+            sr = (48000, 22050)[(i + j) % 2]
+            # a window of the 10 s probe that opens 0.3 s before a voiced stretch
+            start = max(0.0, STRETCHES[int(rng.integers(len(STRETCHES)))][0] - 0.3)
+            dur = float(rng.uniform(*seconds))
+            x = voiced_stretches(sr, seed=int(rng.integers(1 << 30)))[
+                int(start * sr):int((start + dur) * sr)]
+            write_wav(f"{root}/raw/{spk}/{spk}_{seq:03}_mic2.wav", x * 0.8, sr)
+            with open(f"{root}/data/VCTK/txt/{spk}/{spk}_{seq:03}.txt", "w") as f:
+                f.write(CE_SENTENCES[(i + j) % len(CE_SENTENCES)] + "\n")
+            stems.append(f"{spk}_{seq:03}")
+    return stems
+
+
+def write_reference_grid(path: str, transcript: str, dur: float) -> None:
+    """The aligner's output for a ground-truth recording (MFA is not
+    installed): the transcript's words spread evenly over ``dur`` seconds,
+    with pauses at both ends and after the first word, and two phones a
+    word, as a long TextGrid that ``eval.textgrid`` reads."""
+    from dissc_tpu_torch.eval.align import grid_to_text
+    from dissc_tpu_torch.eval.textgrid import Interval
+
+    with open(transcript) as f:
+        words = f.read().split()
+    marks = [""] + words[:1] + [""] + words[1:] + [""]
+    edges = np.linspace(0.0, dur, len(marks) + 1)
+    word_tier = [Interval(float(a), float(b), m) for a, b, m in zip(edges, edges[1:], marks)]
+    phone_tier = []
+    for iv in word_tier:
+        mid = (iv.minTime + iv.maxTime) / 2
+        phone_tier += ([Interval(iv.minTime, iv.maxTime, "")] if not iv.mark else
+                       [Interval(iv.minTime, mid, iv.mark[:1].upper()),
+                        Interval(mid, iv.maxTime, iv.mark[1:2].upper() or "AH")])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(grid_to_text([("words", word_tier), ("phones", phone_tier)], dur))
+
+
+def write_whisper_dir(path: str, cfg, seed: int = 18) -> None:
+    """A local HF Whisper directory: ``config.json``, ``pytorch_model.bin``
+    (weights N(0, 0.02) from a seed) and a synthetic byte-level tokenizer of
+    the config's size: 256 byte symbols and made-up merges up to
+    ``<|endoftext|>``, then medium.en's 1,607 added tokens (start of
+    transcript, 99 language tags, the task tokens, ``<|notimestamps|>``,
+    1,501 timestamps)."""
+    from dissc_tpu_torch.models.whisper import init_state_dict
+    from dissc_tpu_torch.models.whisper_files import bytes_to_unicode
+
+    os.makedirs(path)
+    hf = {"model_type": "whisper", "vocab_size": cfg.vocab_size,
+          "num_mel_bins": cfg.num_mel_bins, "d_model": cfg.d_model,
+          "encoder_layers": cfg.encoder_layers, "decoder_layers": cfg.decoder_layers,
+          "encoder_attention_heads": cfg.num_heads, "decoder_attention_heads": cfg.num_heads,
+          "encoder_ffn_dim": cfg.ffn_dim, "decoder_ffn_dim": cfg.ffn_dim,
+          "max_source_positions": cfg.max_source_positions,
+          "max_target_positions": cfg.max_target_positions}
+    with open(f"{path}/config.json", "w") as f:
+        json.dump(hf, f)
+    torch.save(init_state_dict(cfg, torch.Generator().manual_seed(seed)),
+               f"{path}/pytorch_model.bin")
+    tasks = ["<|startoftranscript|>"] + [f"<|l{i:02d}|>" for i in range(99)] + [
+        "<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+        "<|nocaptions|>", "<|notimestamps|>"]
+    added_tokens = tasks + [f"<|{0.02 * i:.2f}|>" for i in range(1501)]
+    n_vocab = cfg.vocab_size - len(added_tokens)  # <|endoftext|> is the last of these
+    b2u = bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    rng = np.random.default_rng(seed)
+    letters = [b2u[b] for b in range(ord("a"), ord("z") + 1)]
+    while len(vocab) < n_vocab - 1:
+        word = "".join(rng.choice(letters, int(rng.integers(2, 8))))
+        vocab.setdefault((b2u[ord(" ")] if rng.random() < 0.6 else "") + word, len(vocab))
+    vocab["<|endoftext|>"] = n_vocab - 1
+    with open(f"{path}/vocab.json", "w") as f:
+        json.dump(vocab, f)
+    with open(f"{path}/added_tokens.json", "w") as f:
+        json.dump({t: n_vocab + i for i, t in enumerate(added_tokens)}, f)
+    with open(f"{path}/special_tokens_map.json", "w") as f:
+        json.dump({"bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+                   "unk_token": "<|endoftext|>", "additional_special_tokens": tasks}, f)
+
+
+def write_convert_checkpoints(root: str, h: VocoderConfig, hub_cfg, dev: torch.device,
+                              seed: int = 16) -> None:
+    """Every file ``convert_eval --data vctk`` and ``encode`` read, from seeds:
+    HuBERT in the JAX layout and a 100-unit codebook (k-means++ starts: 100
+    of the corpus' own frames, ``models/``), the rhythm and "base" pitch
+    models at ``ProsodyConfig()`` widths (``checkpoints/vctk/{len,pitch}``),
+    the generator (``checkpoints/vctk_vocoder``; weight-norm gains 1 and
+    biases 0, so that its waveform follows the conditioning), and the 107-speaker
+    ``id_to_spkr.pkl`` with the four speakers at convert_eval's ids."""
+    from dissc_tpu_torch.compat import to_jax
+    from dissc_tpu_torch.core.wav import read_wav
+    from dissc_tpu_torch.models import hubert
+    from dissc_tpu_torch.models.hifigan import CodeGenerator
+    from dissc_tpu_torch.train.checkpoints import save_checkpoint
+
+    g = torch.Generator().manual_seed(seed)
+    hub_sd = hubert.init_state_dict(hub_cfg, g)
+    save_checkpoint(f"{root}/models/hubert.pkl", to_jax.hubert_params(hub_sd, hub_cfg))
+    encoder = SpeechUnitEncoder(hub_sd, np.zeros((1, hub_cfg.hidden_size), np.float32), hub_cfg,
+                                device=dev)
+    wav_dir = f"{root}/data/VCTK/wav"
+    with torch.inference_mode():
+        feats = np.concatenate([
+            encoder.model(torch.as_tensor(read_wav(f"{wav_dir}/{n}", "float32")[0][None],
+                                          device=dev))[0].cpu().numpy()
+            for n in sorted(os.listdir(wav_dir)) if n.endswith(".wav")])
+    rng = np.random.default_rng(seed)
+    np.save(f"{root}/models/km100.npy", feats[rng.choice(len(feats), 100, replace=False)])
+
+    os.makedirs(f"{root}/data/VCTK/hubert100", exist_ok=True)
+    names = [f"s{i:03d}" for i in range(CE_N_SPEAKERS)]
+    for spk, i in CE_SPEAKERS.items():
+        names[i] = spk
+    with open(f"{root}/data/VCTK/hubert100/id_to_spkr.pkl", "wb") as f:
+        pickle.dump(names, f)
+    len_model = LenPredictor(n_tokens=100, n_speakers=CE_N_SPEAKERS, generator=g)
+    save_checkpoint(f"{root}/checkpoints/vctk/len/best_model.pth",
+                    to_jax.len_predictor_variables(len_model.state_dict()))
+    save_checkpoint(f"{root}/checkpoints/vctk/len/len_norm_stats.pth", (2.0, 0.5))
+    pitch = build_pitch_model("base", 100, CE_N_SPEAKERS, generator=g)
+    save_checkpoint(f"{root}/checkpoints/vctk/pitch/best_model.pth",
+                    to_jax.pitch_predictor_variables(pitch.state_dict()))
+    gen = CodeGenerator(h, generator=generator_for(seed))
+    with torch.no_grad():  # at the init's gains (~0.1) the waveform is its last bias, a constant
+        for name, p in gen.named_parameters():
+            if name.endswith("weight_g"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+    save_checkpoint(f"{root}/checkpoints/vctk_vocoder/g_00000000",
+                    {"generator": to_jax.generator_tree(gen.state_dict(), h)})
+    with open(f"{root}/checkpoints/vctk_vocoder/config.json", "w") as f:
+        json.dump(dict(h.to_dict(), input_training_file="data/VCTK/hubert100/train.txt"), f)
+
+
+def convert_eval_run(root: str, h: VocoderConfig, hub_cfg, whisper_cfg, dev: torch.device,
+                     seconds=(2.0, 5.0), workers: int = 2) -> dict:
+    """Data prep and ``cli.convert_eval --data vctk --dissc_type dissc_b
+    --sort_gt --dtw_align --whisper_model`` in ``root``, on ``dev``, every
+    stage timed; checks the outputs and returns the raw errors and the
+    timings."""
+    from dissc_tpu_torch.cli import convert_eval, encode, infer, prep_dataset, preprocess
+    from dissc_tpu_torch.cli import sr_inference
+    from dissc_tpu_torch.core.wav import read_wav
+    from dissc_tpu_torch.eval import align, asr, metrics
+    from dissc_tpu_torch.models.whisper import WhisperTranscriber
+
+    device = ["--device", str(dev)]
+    timed = ((preprocess, "main", "preprocess"), (encode, "main", "encode"),
+             (prep_dataset, "main", "prep_dataset"), (infer, "main", "infer"),
+             (sr_inference, "main", "sr_inference"),
+             (convert_eval, "restructure", "restructure"),
+             (convert_eval, "sort_ground_truth", "sort_gt"),
+             (align, "write_dtw_textgrids", "align"), (metrics, "calc_errors", "metrics"),
+             (asr, "load_whisper", "load_whisper"), (metrics, "get_yaapt", "yaapt_per_file"),
+             (align, "align_textgrid", "dtw_per_file"), (align, "dtw_path", "dtw_dp_per_file"),
+             (WhisperTranscriber, "__call__", "transcribe_per_file"))
+    log = {key: [] for _, _, key in timed}
+    log["write_models"] = []
+    stems = write_vctk_corpus(root, seconds)
+    with contextlib.chdir(root), contextlib.ExitStack() as stack:
+        for mod, name, key in timed:
+            stack.enter_context(timed_calls(mod, name, log[key]))
+        preprocess.main(["--srcdir", "raw", "--outdir", "data/VCTK/wav", "--trim", "--pad",
+                         "--workers", str(workers)] + device)
+        for stem in stems:  # the ground truth as VCTK ships it, FLAC
+            x, sr = read_wav(f"data/VCTK/wav/{stem}_mic2.wav", "float32")
+            write_flac16(f"data/VCTK/wav/{stem}_mic2.flac", x, sr)
+            write_reference_grid(f"results/vctk/orig/txtgrid/{stem}.TextGrid",
+                                 f"data/VCTK/txt/{stem.split('_')[0]}/{stem}.txt", len(x) / sr)
+        t0 = time.perf_counter()
+        write_convert_checkpoints(".", h, hub_cfg, dev)
+        write_whisper_dir("models/whisper", whisper_cfg)
+        log["write_models"].append(1e3 * (time.perf_counter() - t0))
+        n_enc = encode.main(["--base_dir", "data/VCTK/wav", "--out_file",
+                             "data/VCTK/hubert100/all.txt", "--hubert_weights",
+                             "models/hubert.pkl", "--kmeans_codebook", "models/km100.npy"]
+                            + device)
+        check(n_enc == len(stems), f"encode wrote {n_enc} of {len(stems)} records (and skipped "
+                                   "the FLAC files)")
+        prep_dataset.main(["--encoded_path", "data/VCTK/hubert100/all.txt", "--stats_path",
+                           "data/VCTK/hubert100/f0_stats.pkl", "--split_method",
+                           "paired_val"] + device)
+        # the rest of the 107-speaker table: a real corpus has their recordings
+        stats = load_f0_stats("data/VCTK/hubert100/f0_stats.pkl")
+        check(sorted(stats) == sorted(CE_SPEAKERS), f"f0 stats of {sorted(stats)}")
+        for name in load_id_to_spkr("data/VCTK/hubert100/id_to_spkr.pkl"):
+            stats.setdefault(name, {"mean": 150.0, "std": 20.0})
+        with open("data/VCTK/hubert100/f0_stats.pkl", "wb") as f:
+            pickle.dump(stats, f)
+
+        errs = convert_eval.main(["--data", "vctk", "--dissc_type", "dissc_b", "--sort_gt",
+                                  "--dtw_align", "--whisper_model", "models/whisper"] + device)
+
+        val = [s for s in stems if int(s.split("_")[1]) <= 24]
+        for trg in CE_SPEAKERS:
+            for s in val:
+                check(os.path.isfile(f"results/vctk/dissc_b/{trg}/{s}.wav"),
+                      f"results/vctk/dissc_b/{trg}/{s}.wav")
+        pairs = [(trg, s) for trg in CE_SPEAKERS for s in val if not s.startswith(trg)]
+        grids = [f"results/vctk/dissc_b/{t}/txtgrid/{s}.TextGrid" for t, s in pairs]
+        check(all(os.path.isfile(p) for p in grids), "a DTW TextGrid for every pair")
+    with open(f"{root}/results/vctk/dissc_b_results.pkl", "rb") as f:
+        saved = pickle.load(f)
+    for key in ("len", "emd", "w_len", "p_len"):
+        check(len(saved[key]) == len(pairs) and bool(np.all(np.isfinite(saved[key]))),
+              f"{len(saved[key])} finite '{key}' entries for {len(pairs)} pairs")
+    kept = ffe_kept(f"{root}/results/vctk", pairs)
+    for key, tier in (("w_ffe", 0), ("p_ffe", 1)):
+        check(len(saved[key]) == kept[tier] and bool(np.all(np.isfinite(saved[key]))),
+              f"{len(saved[key])} finite '{key}' entries, where the pairs whose DTW intervals "
+              f"all hold a 5 ms f0 frame are {kept[tier]}")
+    check(saved["wer_d"] > 0 and saved["cer_d"] > 0, "WER/CER denominators")
+    check(len(log["transcribe_per_file"]) == len(pairs), "Whisper transcribed every pair")
+    check(len(log["sr_inference"]) == len(CE_SPEAKERS), "sr_inference once a target")
+    return {"errs": errs, "log": log, "pairs": len(pairs), "stems": stems, "ffe_kept": kept}
+
+
+def ffe_kept(base: str, pairs: list) -> tuple:
+    """How many pairs the FFE of each tier (words, phones) keeps.  As in the
+    reference (``eval.py:106-129``), an utterance drops out of a tier's FFE
+    when one of its synthetic intervals holds no 5 ms f0 frame (the slice
+    ``int(t * 200 + 2)`` of the contour, zero-padded to the reference's
+    length, is empty and ``interp`` raises): a DTW warp that is flat across
+    an interval, which random weights give often."""
+    from dissc_tpu_torch.core.wav import read_wav
+    from dissc_tpu_torch.eval.textgrid import TextGrid
+
+    kept = [0, 0]
+    for trg, stem in pairs:
+        frames = [round(len(read_wav(p, "float32")[0]) / 80) for p in (
+            f"{base}/dissc_b/{trg}/{stem}.wav", f"{base}/orig/{trg}_{stem.split('_')[1]}.wav")]
+        n = max(frames)  # calc_errors pads the synthetic contour up to the reference's
+        grid = TextGrid.fromFile(f"{base}/dissc_b/{trg}/txtgrid/{stem}.TextGrid")
+        for tier in (0, 1):
+            kept[tier] += all(min(int(iv.maxTime * 200 + 2), n) > int(iv.minTime * 200 + 2)
+                              for iv in grid[tier] if iv.mark)
+    return tuple(kept)
+
+
+def whisper_timing(model_dir: str, dev: torch.device, seed: int = 19) -> dict:
+    """Whisper from ``model_dir`` (medium.en in phase 7) on the card:
+    ``transcribe_batch`` of 1 and of 8 noise clips of 30 s, the encoder
+    alone on the same log-mel, and the decoder's ms a token (the batch's
+    time less the encoder's, over the ``n_init + max_len - 1`` steps)."""
+    from dissc_tpu_torch.eval.asr import load_whisper
+    from dissc_tpu_torch.models import whisper as tw
+
+    transcriber = load_whisper(model_dir, dev)
+    steps = len(transcriber.initial_tokens) + transcriber.max_len - 1
+    rng = np.random.default_rng(seed)
+    out = {}
+    for b in (1, 8):
+        wavs = list((rng.standard_normal((b, tw.CHUNK_SAMPLES)) * 0.1).astype(np.float32))
+        mel = tw.log_mel_spectrogram(torch.as_tensor(np.stack(wavs), device=dev))
+        enc_ms, batch_ms = [], []
+        for _ in range(2):  # the first is warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                tw.encode(transcriber.model, mel)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            texts = transcriber.transcribe_batch(wavs)
+            enc_ms.append(1e3 * (t1 - t0))
+            batch_ms.append(1e3 * (time.perf_counter() - t1))
+        check(len(texts) == b, f"transcribe_batch of {b} gave {len(texts)} texts")
+        out[f"batch_{b}"] = {"encoder_ms": enc_ms[-1], "transcribe_batch_ms": batch_ms[-1],
+                             "decode_ms_per_token": (batch_ms[-1] - enc_ms[-1]) / steps}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del transcriber
+    torch.cuda.empty_cache()
+    return out
+
+
+def convert_eval_card_vs_cpu(root: str, dev: torch.device) -> dict:
+    """(c) on small inputs: ``run_inference`` waveforms, ``calc_errors`` on
+    phase 7's results tree (with the uniform fallback grids), Whisper
+    encoder states and greedy tokens at a reduced config."""
+    from dissc_tpu_torch.core.wav import read_wav
+    from dissc_tpu_torch.eval import metrics
+    from dissc_tpu_torch.infer import vocoder as tvoc
+    from dissc_tpu_torch.models import whisper as tw
+
+    out = {}
+    with contextlib.chdir(root):
+        with open("data/VCTK/hubert100/val.txt") as f:
+            lines = [json.loads(line) for line in f][:2]
+        with open("small.txt", "w") as f:
+            for rec in lines:
+                f.write(json.dumps(dict(rec, units=rec["units"][:25], f0=rec["f0"][:25])) + "\n")
+        waves = {}
+        for d in (dev, "cpu"):
+            got = waves[str(d)] = {}
+            real = tvoc.write_wav
+
+            def capture(path, data, sr, got=got, real=real):
+                got[os.path.basename(path)] = np.asarray(data)
+                real(path, data, sr)
+
+            tvoc.write_wav = capture
+            try:
+                tvoc.run_inference("checkpoints/vctk_vocoder", "small.txt", f"small_{d}",
+                                   data_path="data/VCTK/wav", vc=True, target_speakers=["p245"],
+                                   device=d)
+            finally:
+                tvoc.write_wav = real
+        a, b = waves[str(dev)], waves["cpu"]
+        out["run_inference_files"] = sorted(a)
+        out["run_inference_max_abs_err"] = (
+            max(float(np.abs(a[k] - b[k]).max()) for k in a)
+            if sorted(a) == sorted(b) and all(a[k].shape == b[k].shape for k in a)
+            else float("inf"))
+        # scored without the DTW grids, on the uniform fallback grids, whose
+        # intervals all hold f0 frames: FFE runs for every pair
+        shutil.copytree("results/vctk", "results_uniform",
+                        ignore=lambda d, names: ["txtgrid"] if "dissc_b" in d else [])
+        errs = {str(d): metrics.calc_errors("results_uniform", "dissc_b", list(CE_SPEAKERS),
+                                            device=d) for d in (dev, "cpu")}
+        # YAAPT card vs CPU file by file, to say where calc_errors differs
+        yaapt_diff = {}
+        for path in sorted(glob.glob("results_uniform/*/*.wav") +
+                           glob.glob("results_uniform/dissc_b/*/*.wav")):
+            x, sr = read_wav(path, "float32")
+            a, b = (metrics.get_yaapt(x, sr, device=d) for d in (dev, "cpu"))
+            voicing = int(np.sum((a > 0) != (b > 0)))
+            both = (a > 0) & (b > 0)
+            rel = float(np.max(np.abs(a - b)[both] / b[both])) if both.any() else 0.0
+            if voicing or rel > 1e-4:
+                yaapt_diff[path] = {"frames": len(a), "voicing_differs": voicing,
+                                    "voiced_f0_max_rel": rel}
+        out["yaapt_files_that_differ"] = yaapt_diff
+    e, c = errs[str(dev)], errs["cpu"]
+    out["calc_errors_ffe_entries"] = [len(e["w_ffe"]), len(e["p_ffe"])]
+    out["calc_errors_len_equal"] = e["len"] == c["len"]
+    out["calc_errors_emd_max_abs_diff"] = float(np.max(np.abs(np.subtract(e["emd"], c["emd"]))))
+    out["calc_errors_ffe_equal"] = e["w_ffe"] == c["w_ffe"] and e["p_ffe"] == c["p_ffe"]
+    out["calc_errors_durations_equal"] = e["w_len"] == c["w_len"] and e["p_len"] == c["p_len"]
+
+    cfg = tw.WhisperConfig(vocab_size=1000, d_model=256, encoder_layers=4, decoder_layers=4,
+                           num_heads=4, ffn_dim=1024)
+    g = torch.Generator().manual_seed(20)
+    sd = tw.init_state_dict(cfg, g)
+    for k in sd:  # wider than N(0, 0.02), so the greedy tokens vary and have clear winners
+        if k.endswith("weight") and "layer_norm" not in k:
+            sd[k] = sd[k] * (50.0 if "embed_tokens" in k else 100.0 if "embed_positions" in k
+                             else 300.0 / sd[k].shape[1] ** 0.5)
+    rng = np.random.default_rng(21)
+    wav = (rng.standard_normal((2, tw.CHUNK_SAMPLES)) * 0.1).astype(np.float32)
+    res = {}
+    for d in (dev, "cpu"):
+        model = tw.build(sd, cfg, torch.device(d))
+        mel = tw.log_mel_spectrogram(torch.as_tensor(wav, device=d))
+        with torch.inference_mode():
+            enc = tw.encode(model, mel).cpu()
+        res[str(d)] = (enc, tw.greedy_decode(model, mel, [1, 2], 999, 32).cpu())
+    (ea, ta), (eb, tb) = res[str(dev)], res["cpu"]
+    out["whisper_encoder_max_abs_err"] = float((ea - eb).abs().max())
+    out["whisper_tokens_equal"] = bool(torch.equal(ta, tb))
+    out["whisper_distinct_tokens"] = int(len(torch.unique(ta)))
+    return out
+
+
+def convert_eval_phase(h: VocoderConfig, dev: torch.device) -> None:
+    """Phase 7 at full width: HuBERT-base (layer 6), ``ProsodyConfig()``,
+    ``VocoderConfig()``, Whisper medium.en, weights from seeds."""
+    from dissc_tpu_torch.models.whisper import WhisperConfig
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ce_") as root:
+        t0 = time.perf_counter()
+        run = convert_eval_run(root, h, HubertConfig(), WhisperConfig(), dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log = run["log"]
+        stage = {k: float(np.sum(log[k])) for k in ("preprocess", "encode", "prep_dataset",
+                                                    "write_models", "infer", "sr_inference",
+                                                    "restructure", "sort_gt", "align",
+                                                    "metrics", "load_whisper")}
+        per_file = {k: log[k] for k in ("yaapt_per_file", "dtw_per_file", "dtw_dp_per_file",
+                                        "transcribe_per_file")}
+        errs = run["errs"]
+        print("convert+eval (b) convert_eval", json.dumps({
+            "card": smi, "pairs": run["pairs"], "utterances": len(run["stems"]),
+            "ffe_kept_words_phones": run["ffe_kept"],
+            "stage_ms": stage, "per_file_ms": per_file, "phase_wall_s": wall,
+            "peak_gib": peak, "wer": errs["wer_s"] / max(errs["wer_d"], 1),
+            "cer": errs["cer_s"] / max(errs["cer_d"], 1), "emd": errs["emd"],
+            "len": errs["len"], "w_ffe": errs["w_ffe"], "p_ffe": errs["p_ffe"]}), flush=True)
+        t1 = time.perf_counter()
+        cmp = convert_eval_card_vs_cpu(root, dev)
+        check(cmp["calc_errors_ffe_entries"] == [run["pairs"]] * 2,
+              f"FFE on the uniform grids for every pair: {cmp['calc_errors_ffe_entries']}")
+        print("convert+eval (c) card vs CPU", json.dumps(dict(cmp, card=smi,
+              wall_s=time.perf_counter() - t1)), flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        timing = whisper_timing(f"{root}/models/whisper", dev)
+    print("convert+eval (d) Whisper medium.en", json.dumps(dict(timing, card=smi)), flush=True)
+    check(cmp["run_inference_max_abs_err"] <= 1e-4,
+          f"run_inference waveforms card vs CPU: {cmp['run_inference_max_abs_err']}")
+    check(cmp["calc_errors_len_equal"] and cmp["calc_errors_durations_equal"],
+          "calc_errors lengths and durations card vs CPU")
+    # EMD is 1-Lipschitz in the contours: YAAPT's 1e-4 relative on f0 under 400 Hz
+    check(cmp["calc_errors_emd_max_abs_diff"] <= 0.04,
+          f"calc_errors EMD card vs CPU: {cmp['calc_errors_emd_max_abs_diff']}")
+    check(cmp["calc_errors_ffe_equal"], "calc_errors FFE card vs CPU")
+    check(cmp["whisper_encoder_max_abs_err"] <= 1e-4,
+          f"Whisper encoder card vs CPU: {cmp['whisper_encoder_max_abs_err']}")
+    check(cmp["whisper_tokens_equal"] and cmp["whisper_distinct_tokens"] > 3,
+          "Whisper greedy tokens card vs CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1197,6 +1675,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     loop_launches = train_loop_phase(h, dev)
+
+    mel_kernel.reset_launch_counts()
+    convert_eval_phase(h, dev)
+    check(mel_kernel.launch_counts["mel_spectrogram"] == 0,
+          "the convert + eval path launched no kernel of the port")
 
     kernels = [{"name": "mel_spectrogram", "route": "cuda",
                 "source": "dissc_tpu_torch/csrc/mel_kernel.cu",

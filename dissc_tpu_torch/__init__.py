@@ -14,7 +14,10 @@ is the fused log-mel (:mod:`dissc_tpu_torch.kernels.mel_kernel`, source in
 
 :class:`ConversionPipeline` (``dissc_tpu_torch.pipeline``) serves the
 whole conversion path, wav in and wav out: HuBERT units and YAAPT f0,
-prosody conversion, HiFi-GAN synthesis.
+prosody conversion, HiFi-GAN synthesis.  ``dissc_tpu_torch.cli`` holds the
+training, data-prep, serving and evaluation CLIs (``convert_eval`` scores
+conversions with Whisper, DTW alignment and the pitch and length metrics
+of ``dissc_tpu_torch.eval``).
 """
 
 

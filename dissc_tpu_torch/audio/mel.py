@@ -82,16 +82,22 @@ def hann_window(win_size: int, n_fft: int) -> np.ndarray:
     return window
 
 
+# The cached tensors are made outside inference mode even when the first
+# call comes from inside it: an inference tensor cannot take part in a later
+# autograd graph (the trainer's mel loss), and the cache outlives the call.
 @functools.lru_cache(maxsize=16)
 def _device_tensors(n_fft: int, win_size: int, device: torch.device):
     cos_b, sin_b = _dft_bases(n_fft)
-    return (torch.from_numpy(hann_window(win_size, n_fft)).to(device),
-            torch.from_numpy(cos_b).to(device), torch.from_numpy(sin_b).to(device))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(hann_window(win_size, n_fft)).to(device),
+                torch.from_numpy(cos_b).to(device), torch.from_numpy(sin_b).to(device))
 
 
 @functools.lru_cache(maxsize=16)
 def _mel_tensor(sampling_rate, n_fft, num_mels, fmin, fmax, device: torch.device):
-    return torch.from_numpy(mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax)).to(device)
 
 
 def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int, win_size: int,

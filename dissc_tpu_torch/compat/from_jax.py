@@ -5,8 +5,9 @@ torch layout), without importing it: each function takes a JAX tree as
 nested dicts of numpy arrays (as ``jax.device_get`` or a ``g_``/``do_``/
 ``best_model.pth`` checkpoint gives it) and returns a state dict of CPU
 float32 tensors keyed like the reference modules (``sr/models.py``,
-``model/len_predictor.py``, ``model/pitch_predictor.py``) or, for HuBERT,
-like transformers' ``HubertModel``: what the port's modules declare.
+``model/len_predictor.py``, ``model/pitch_predictor.py``) or, for HuBERT
+and Whisper, like transformers' ``HubertModel`` and
+``WhisperForConditionalGeneration``: what the port's modules declare.
 
 Layouts: JAX ``Conv1d`` kernels are ``(k, in, out)``, ``ConvTranspose1d``
 ``(k, out, in)``, ``Conv2d`` ``(kh, kw, in, out)``; torch wants
@@ -176,4 +177,54 @@ def hubert_state_dict(params: Mapping[str, Any], cfg) -> StateDict:
         dense(f"{p}.feed_forward.output_dense", tree["fc2"])
         ln(f"{p}.final_layer_norm", tree["final_layer_norm"])
         i += 1
+    return sd
+
+
+def whisper_state_dict(params: Mapping[str, Any], cfg) -> StateDict:
+    """JAX Whisper params (layers stacked on a leading axis, ``[in, out]``
+    kernels, WIO convs) -> transformers ``WhisperForConditionalGeneration``
+    keys (the inverse of ``dissc_tpu.models.whisper.convert_hf_state_dict``;
+    ``proj_out`` is the tied embedding and is left out)."""
+    sd: StateDict = {}
+
+    def ln(prefix: str, tree: Mapping[str, Any], i=None) -> None:
+        pick = (lambda a: np.asarray(a)[i]) if i is not None else np.asarray
+        sd[f"{prefix}.weight"] = _t(pick(tree["scale"]))
+        sd[f"{prefix}.bias"] = _t(pick(tree["bias"]))
+
+    def lin(prefix: str, tree: Mapping[str, Any], i: int) -> None:
+        sd[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"])[i].T)
+        if "bias" in tree:
+            sd[f"{prefix}.bias"] = _t(np.asarray(tree["bias"])[i])
+
+    def attn(prefix: str, tree: Mapping[str, Any], i: int) -> None:
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                             ("out", "out_proj")):
+            lin(f"{prefix}.{theirs}", tree[ours], i)
+
+    enc, dec = params["encoder"], params["decoder"]
+    for c in ("conv1", "conv2"):
+        sd[f"model.encoder.{c}.weight"] = _t(np.asarray(enc[c]["kernel"]).transpose(_CONV1D))
+        sd[f"model.encoder.{c}.bias"] = _t(enc[c]["bias"])
+    sd["model.encoder.embed_positions.weight"] = _t(enc["pos"])
+    for i in range(cfg.encoder_layers):
+        p, lp = f"model.encoder.layers.{i}", enc["layers"]
+        attn(f"{p}.self_attn", lp["attn"], i)
+        ln(f"{p}.self_attn_layer_norm", lp["attn_ln"], i)
+        lin(f"{p}.fc1", lp["fc1"], i)
+        lin(f"{p}.fc2", lp["fc2"], i)
+        ln(f"{p}.final_layer_norm", lp["ffn_ln"], i)
+    ln("model.encoder.layer_norm", enc["ln"])
+    sd["model.decoder.embed_tokens.weight"] = _t(dec["embed"])
+    sd["model.decoder.embed_positions.weight"] = _t(dec["pos"])
+    for i in range(cfg.decoder_layers):
+        p, lp = f"model.decoder.layers.{i}", dec["layers"]
+        attn(f"{p}.self_attn", lp["attn"], i)
+        ln(f"{p}.self_attn_layer_norm", lp["attn_ln"], i)
+        attn(f"{p}.encoder_attn", lp["xattn"], i)
+        ln(f"{p}.encoder_attn_layer_norm", lp["xattn_ln"], i)
+        lin(f"{p}.fc1", lp["fc1"], i)
+        lin(f"{p}.fc2", lp["fc2"], i)
+        ln(f"{p}.final_layer_norm", lp["ffn_ln"], i)
+    ln("model.decoder.layer_norm", dec["ln"])
     return sd

@@ -3,7 +3,8 @@
 
 The trainers write their checkpoints through these functions, so a
 ``g_<08d>``, ``do_<08d>`` (the discriminators) or ``best_model.pth``
-written by the port has the JAX package's layout: nested dicts of numpy
+written by the port has the JAX package's layout (and ``hubert_params``
+writes the HuBERT pickle ``cli.encode`` reads): nested dicts of numpy
 float32 arrays that either package loads.  Layouts: torch ``Conv1d``
 ``(out, in, k)`` -> JAX ``(k, in, out)``, ``ConvTranspose1d``
 ``(in, out, k)`` -> ``(k, out, in)``, ``Conv2d`` ``(out, in, kh, kw)`` ->
@@ -131,3 +132,43 @@ def pitch_predictor_variables(sd: Mapping[str, torch.Tensor]) -> Tree:
     for bn in sorted({k.split(".")[0] for k in sd if k.startswith("bn")}):
         params[bn], stats[bn] = _bn(sd, bn)
     return {"params": {"core": params}, "batch_stats": {"core": stats}}
+
+
+def hubert_params(sd: Mapping[str, torch.Tensor], cfg) -> Tree:
+    """Port ``HubertEncoder`` state dict (``HubertModel`` keys) -> the JAX
+    ``HubertEncoder`` params, what ``cli.encode --hubert_weights`` reads (the
+    inverse of ``from_jax.hubert_state_dict``; the pos-conv gain ``[1, 1, k]``
+    -> ``g`` ``[k, 1, 1]``)."""
+    def ln(prefix: str) -> Tree:
+        return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+    def dense(prefix: str) -> Tree:
+        return {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).T),
+                "bias": _np(sd[f"{prefix}.bias"])}
+
+    fe: Tree = {f"conv_{i}": {"kernel": np.ascontiguousarray(
+        _np(sd[f"feature_extractor.conv_layers.{i}.conv.weight"]).transpose(_CONV1D))}
+        for i in range(len(cfg.conv_dim))}
+    fe["group_norm"] = ln("feature_extractor.conv_layers.0.layer_norm")
+    params: Tree = {
+        "feature_extractor": fe,
+        "fp_layer_norm": ln("feature_projection.layer_norm"),
+        "fp_projection": dense("feature_projection.projection"),
+        "pos_conv": {"g": _np(sd["encoder.pos_conv_embed.conv.weight_g"]).reshape(-1, 1, 1),
+                     "v": np.ascontiguousarray(
+                         _np(sd["encoder.pos_conv_embed.conv.weight_v"]).transpose(_CONV1D)),
+                     "bias": _np(sd["encoder.pos_conv_embed.conv.bias"])},
+        "encoder_layer_norm": ln("encoder.layer_norm"),
+    }
+    i = 0
+    while f"encoder.layers.{i}.layer_norm.weight" in sd:
+        p = f"encoder.layers.{i}"
+        layer = {name: dense(f"{p}.attention.{name}")
+                 for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
+        layer.update(self_attn_layer_norm=ln(f"{p}.layer_norm"),
+                     fc1=dense(f"{p}.feed_forward.intermediate_dense"),
+                     fc2=dense(f"{p}.feed_forward.output_dense"),
+                     final_layer_norm=ln(f"{p}.final_layer_norm"))
+        params[f"layer_{i}"] = layer
+        i += 1
+    return params

@@ -29,7 +29,10 @@ def _read_riff_float(path: str) -> Tuple[np.ndarray, int, int]:
     import struct
 
     with open(path, "rb") as f:
-        riff, _, wave_id = struct.unpack("<4sI4s", f.read(12))
+        head = f.read(12)
+        if len(head) < 12:
+            raise ValueError(f"not a RIFF/WAVE file (too short): {path}")
+        riff, _, wave_id = struct.unpack("<4sI4s", head)
         if riff != b"RIFF" or wave_id != b"WAVE":
             raise ValueError(f"not a RIFF/WAVE file: {path}")
         fmt = None
@@ -39,7 +42,10 @@ def _read_riff_float(path: str) -> Tuple[np.ndarray, int, int]:
                 raise ValueError(f"no data chunk in {path}")
             cid, size = struct.unpack("<4sI", hdr)
             if cid == b"fmt ":
-                fmt = struct.unpack("<HHIIHH", f.read(16))
+                raw_fmt = f.read(16)
+                if len(raw_fmt) < 16:
+                    raise ValueError(f"truncated fmt chunk in {path}")
+                fmt = struct.unpack("<HHIIHH", raw_fmt)
                 f.seek(size - 16 + (size & 1), 1)
             elif cid == b"data":
                 raw = f.read(size)

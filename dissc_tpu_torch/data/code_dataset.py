@@ -24,11 +24,15 @@ Two differences from the JAX package, both about failures:
   package catches every exception and trains on zero f0; here every error
   of the tracker, a CUDA or build error included, propagates.
 
-And one about the fallback's rate: the JAX package returns YAAPT's 5 ms
-track (4 values a code frame at 16 kHz), which the LUT generator answers
-with a waveform 4 times the segment, so its train and validation steps
-fail on mismatched mel shapes.  The port pools the track to the code rate
-as the unit encoder does, giving the f0 a manifest would carry.
+And one about the fallback's rate in training mode: the JAX package
+returns YAAPT's 5 ms track (4 values a code frame at 16 kHz), which the
+LUT generator answers with a waveform 4 times the segment, so its train
+and validation steps fail on mismatched mel shapes.  The port pools the
+track to the code rate as the unit encoder does, giving the f0 a manifest
+would carry.  In eval mode (whole utterances, for ``run_inference``) it
+returns the 5 ms track as the JAX package does: ``VocoderEngine`` groups
+such items by their f0 rate and synthesises ``r * hop`` samples a code
+frame, the reference generator's finer-rate conditioning.
 
 Speaker parsing matches ``parse_speaker`` (``sr/dataset.py:132-147``);
 ``id_to_spkr`` ordering matches the sorted-unique convention
@@ -102,12 +106,19 @@ class CodeDataset:
         f0_stats: Optional[Dict] = None,
         f0_normalize: bool = False,
         f0_median: bool = False,
+        pad: Optional[int] = None,
         id_to_spkr: Optional[List[str]] = None,
+        eval_mode: bool = False,
+        unseen_speakers: bool = False,
         seed: int = 1234,
         f0_device: DeviceLike = None,
     ):
-        """``f0_device``: where the YAAPT fallback runs (``None``: the CUDA
-        card, raising without one)."""
+        """``pad``: zero-pad each waveform up to the next multiple of ``pad``
+        samples (by a whole ``pad`` when it is one already, as the reference
+        does).  ``eval_mode``: whole utterances, codes and pitch uncut, f0
+        of the fallback at YAAPT's 5 ms rate.  ``unseen_speakers``: every
+        item gets speaker 0.  ``f0_device``: where the YAAPT fallback runs
+        (``None``: the CUDA card, raising without one)."""
         self.audio_files, self.codes, self.pitch = files
         self.segment_size = segment_size
         self.code_hop_size = code_hop_size
@@ -117,6 +128,9 @@ class CodeDataset:
         self.f0_stats = f0_stats
         self.f0_normalize = f0_normalize
         self.f0_median = f0_median
+        self.pad = pad
+        self.eval_mode = eval_mode
+        self.unseen_speakers = unseen_speakers
         self._rng = random.Random(seed)
         self.f0_device = f0_device
         # YAAPT's band-pass needs a Nyquist frequency above its upper edge;
@@ -140,6 +154,8 @@ class CodeDataset:
             from dissc_tpu_torch.audio.resample import resample_poly_np
 
             audio = resample_poly_np(audio.astype(np.float64), sr, self.sampling_rate)
+        if self.pad:
+            audio = np.pad(audio, (0, self.pad - audio.shape[-1] % self.pad), "constant")
         return normalize_audio_int16(audio)
 
     def _sample_interval(self, seqs: Sequence[np.ndarray], seq_len: Optional[int] = None):
@@ -162,11 +178,15 @@ class CodeDataset:
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         filename = self.audio_files[index]
         audio = self._load_audio(filename)
-        code_length = min(audio.shape[0] // self.code_hop_size, self.codes[index].shape[0])
-        code = self.codes[index][:code_length]
-        audio = audio[: code_length * self.code_hop_size]
-        pitch = self.pitch[index][:code_length] if self.pitch else np.zeros(0, np.float32)
-        assert audio.shape[0] // self.code_hop_size == code.shape[0], "Code audio mismatch"
+        code = self.codes[index]
+        if not self.eval_mode:
+            code_length = min(audio.shape[0] // self.code_hop_size, code.shape[0])
+            code = code[:code_length]
+            audio = audio[: code_length * self.code_hop_size]
+            pitch = self.pitch[index][:code_length] if self.pitch else np.zeros(0, np.float32)
+            assert audio.shape[0] // self.code_hop_size == code.shape[0], "Code audio mismatch"
+        else:
+            pitch = self.pitch[index] if self.pitch else np.zeros(0, np.float32)
 
         # tile-repeat short clips to the training segment
         while audio.shape[0] < self.segment_size:
@@ -174,7 +194,9 @@ class CodeDataset:
             code = np.hstack([code, code])
             pitch = np.hstack([pitch, pitch])
 
-        if pitch.shape[0]:
+        if self.eval_mode:
+            feats_audio = audio.astype(np.float32)
+        elif pitch.shape[0]:
             audio_c, code, pitch = self._sample_interval(
                 [audio[None, :], code, pitch]
             )
@@ -194,8 +216,9 @@ class CodeDataset:
             feats["f0"] = f0
 
         if self.multispkr:
-            spkr_name = parse_speaker(filename, self.multispkr)
-            feats["spkr"] = np.array([self.spkr_to_id[spkr_name]], np.int32)
+            spkr = 0 if self.unseen_speakers else self.spkr_to_id[
+                parse_speaker(filename, self.multispkr)]
+            feats["spkr"] = np.array([spkr], np.int32)
 
         if self.f0_normalize and self.f0:
             spkr_name = parse_speaker(filename, self.multispkr)
@@ -222,12 +245,17 @@ class CodeDataset:
         """``[F, 1]`` f0 of one crop at the code rate: YAAPT's 5 ms track
         pooled per code frame as the unit encoder pools it
         (:func:`~dissc_tpu_torch.audio.yaapt.f0_per_unit`), so the crop's f0
-        is what a manifest would carry.  Zeros at a sampling rate the
-        tracker cannot take; every error of the tracker propagates."""
+        is what a manifest would carry; in eval mode the 5 ms track itself.
+        Zeros at a sampling rate the tracker cannot take (in eval mode one
+        per 80 samples, as the JAX fallback); every error of the tracker
+        propagates."""
         frames = audio.shape[0] // self.code_hop_size
         if not self._yaapt_takes_rate:
-            return np.zeros((frames, 1), np.float32)
+            n = audio.shape[0] // 80 if self.eval_mode else frames
+            return np.zeros((n, 1), np.float32)
         f0_5ms = yaapt.yaapt_f0(audio, self.sampling_rate, device=self.f0_device)
+        if self.eval_mode:
+            return f0_5ms.reshape(-1, 1).astype(np.float32)
         per = self.code_hop_size * 200 // self.sampling_rate  # 5 ms frames a code frame
         return yaapt.f0_per_unit(f0_5ms, frames, per).reshape(-1, 1)
 
@@ -239,6 +267,8 @@ class CodeDataset:
         loader (``native/wavloader.cc``; raises if it cannot be built) —
         crop *sampling* stays here so the draw sequence is identical on
         both paths; only decode/normalise/copy moves to native threads.
+        With ``pad`` set the batches take the Python path, as in the JAX
+        package (the native loader does not pad).
         """
         order = np.arange(len(self))
         if shuffle:
@@ -250,7 +280,7 @@ class CodeDataset:
             order = np.resize(order, -(-len(order) // batch_size) * batch_size)
         for start in range(0, len(order) - batch_size + 1, batch_size):
             idxs = order[start : start + batch_size]
-            if not use_native:
+            if not use_native or self.pad is not None:
                 items = [self[i] for i in idxs]
                 batch = {
                     "code": np.stack([it["code"] for it in items]),
@@ -314,7 +344,8 @@ class CodeDataset:
                 f0s.append(pitch[start_step : start_step + seg_frames]
                            .reshape(-1, 1).astype(np.float32))
             spkr_name = parse_speaker(self.audio_files[i], self.multispkr)
-            spkrs.append(np.array([self.spkr_to_id[spkr_name]], np.int32))
+            spkrs.append(np.array(
+                [0 if self.unseen_speakers else self.spkr_to_id[spkr_name]], np.int32))
 
         native_rows = [j for j, p in enumerate(paths) if p is not None]
         audio = np.zeros((len(idxs), seg), np.float32)

@@ -13,6 +13,7 @@ this project wrote.
 """
 from __future__ import annotations
 
+import csv
 import json
 import os
 import pickle
@@ -54,6 +55,17 @@ def load_f0_stats(path: str) -> Dict:
 def save_f0_stats(path: str, stats: Dict) -> None:
     with open(path, "wb") as f:
         pickle.dump(stats, f)
+
+
+def read_pair_csv(path: str) -> Dict[str, set]:
+    """The speaker-verification pair CSV -> ``{syn_sample: {syn_trgt, ...}}``
+    (the JAX package reads it with pandas, ``index_col=0``; only these two
+    columns are used)."""
+    pairs: Dict[str, set] = {}
+    with open(path, newline="") as f:
+        for row in csv.DictReader(f):
+            pairs.setdefault(row["syn_sample"], set()).add(row["syn_trgt"])
+    return pairs
 
 
 def prep_stats_arrays(

@@ -13,7 +13,6 @@ Outputs follow the JSONL contract (``{"units", "f0", "audio"}``).
 """
 from __future__ import annotations
 
-import csv
 import os
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -30,7 +29,12 @@ from dissc_tpu_torch.core.seqops import (
     repeat_interleave_padded,
 )
 from dissc_tpu_torch.data.jsonl import append_unit_record, iter_unit_records
-from dissc_tpu_torch.data.stats import load_f0_stats, load_id_to_spkr, prep_stats_arrays
+from dissc_tpu_torch.data.stats import (
+    load_f0_stats,
+    load_id_to_spkr,
+    prep_stats_arrays,
+    read_pair_csv,
+)
 from dissc_tpu_torch.device import DeviceLike, resolve_device
 from dissc_tpu_torch.models.prosody import LenPredictor, calc_freq
 from dissc_tpu_torch.train.checkpoints import load_checkpoint
@@ -222,16 +226,6 @@ class ProsodyConverter:
         return morph_seq_len(in_units, pitch, np.asarray(t_lens)).tolist()
 
 
-def _read_pairs(path: str) -> Dict[str, set]:
-    """The speaker-verification pair CSV -> ``{syn_sample: {syn_trgt, ...}}``
-    (the JAX package reads it with pandas, ``index_col=0``)."""
-    pairs: Dict[str, set] = {}
-    with open(path, newline="") as f:
-        for row in csv.DictReader(f):
-            pairs.setdefault(row["syn_sample"], set()).add(row["syn_trgt"])
-    return pairs
-
-
 def infer_file(input_path: str, out_path: str, len_model_dir: Optional[str],
                f0_model_dir: Optional[str], f0_model_type: str = "new",
                f0_stats_path: str = "", id_to_spkr_path: Optional[str] = None,
@@ -258,7 +252,7 @@ def infer_file(input_path: str, out_path: str, len_model_dir: Optional[str],
         records = records[:n]
     os.makedirs(out_path, exist_ok=True)
     base = os.path.basename(input_path)
-    pairs = _read_pairs(sample_df) if sample_df else None
+    pairs = read_pair_csv(sample_df) if sample_df else None
 
     def targets_of(rec):
         stem = os.path.splitext(rec["audio"])[0].split("_mic2")[0]

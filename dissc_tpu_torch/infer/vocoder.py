@@ -17,12 +17,18 @@ Behaviour of the JAX engine, on the card:
 
 ``from_checkpoint`` reads ``config.json`` and the latest ``g_*`` pickle
 written by either package's trainer (JAX tree layout).
+
+:func:`run_inference` is the file-level driver of ``cli.sr_inference``
+(reference ``sr/inference.py``): resynthesis, per-target voice conversion
+and ground-truth copies written as WAVs.  Where the reference fans out
+one worker process per GPU, one engine batches the utterances on the card.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +36,9 @@ import torch
 
 from dissc_tpu_torch.compat.from_jax import generator_state_dict
 from dissc_tpu_torch.core.config import VocoderConfig
+from dissc_tpu_torch.core.wav import peak_normalize, write_wav
+from dissc_tpu_torch.data.code_dataset import CodeDataset, parse_manifest
+from dissc_tpu_torch.data.stats import load_f0_stats, read_pair_csv
 from dissc_tpu_torch.device import DeviceLike, resolve_device
 from dissc_tpu_torch.infer.streaming import StreamingVocoder
 from dissc_tpu_torch.models.hifigan import CodeGenerator
@@ -192,3 +201,130 @@ def renorm_f0(f0: np.ndarray, spkr_id: int, spkr_name, f0_stats: Dict) -> np.nda
         new_std = stats.get("f0_std", stats.get("std"))
     f0[ii] = (f0[ii] - mean_) / max(std_, 1e-8) * new_std + new_mean
     return f0
+
+
+def parse_code_file(code_file: str):
+    """Raw-code manifest: ``name|u0 u1 u2 ...`` per line (the reference's
+    ``--code_file`` mode, ``sr/inference.py:122-129``) -> (items, names)."""
+    items, names = [], []
+    with open(code_file) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            name, codes = line.split("|")
+            items.append({"code": np.asarray([int(v) for v in codes.split(" ")], np.int64)})
+            names.append(name)
+    return items, names
+
+
+def _write(output_dir: str, name: str, wav: np.ndarray, sr: int) -> None:
+    write_wav(os.path.join(output_dir, name), peak_normalize(wav), sr)
+
+
+def run_inference(
+    checkpoint_file: str,
+    input_code_file: str,
+    output_dir: str,
+    data_path: Optional[str] = None,
+    vc: bool = False,
+    target_speakers: Optional[List[str]] = None,
+    f0_stats_path: Optional[str] = None,
+    unseen_speaker: bool = False,
+    id_to_spkr_path: Optional[str] = None,
+    pad: Optional[int] = None,
+    n: int = -1,
+    batch_size: int = 8,
+    code_file: Optional[str] = None,
+    unseen_f0_path: Optional[str] = None,
+    sample_df_path: Optional[str] = None,
+    parts: bool = False,
+    device: DeviceLike = None,
+) -> float:
+    """File-level driver (``dissc_tpu.infer.vocoder.run_inference``).  Writes
+    ``<name>_gen.wav`` (resynthesis with the source speaker),
+    ``<name>_<k>_gen.wav`` (voice conversion to speaker id ``k``) and
+    ``<name>_gt.wav`` (the ground truth), each peak-normalised, and returns
+    the mean RTF.  ``sample_df_path`` is the speaker-verification pair CSV:
+    only its (sample, target) pairs are converted, with no resynthesis and
+    no ground truth.  ``device=None`` runs on the CUDA card and raises
+    without one."""
+    engine = VocoderEngine.from_checkpoint(checkpoint_file, device=device)
+    h = engine.h
+    os.makedirs(output_dir, exist_ok=True)
+
+    if code_file is not None:
+        # raw-code mode: units only, no ground truth, f0 or speakers
+        items, names = parse_code_file(code_file)
+        wavs, rtf = engine.synthesize_utterances(items[: n if n != -1 else None], batch_size)
+        for name, wav in zip(names, wavs):
+            _write(output_dir, f"{Path(name).stem}_gen.wav", wav, h.sampling_rate)
+        return rtf
+
+    base_path = data_path if data_path is not None else h.test_base_path
+    file_list = parse_manifest(input_code_file, base_path)
+    if unseen_speaker:
+        id_to_spkr = load_checkpoint(id_to_spkr_path)
+    else:
+        id_to_spkr = None
+        default_ids = os.path.join(os.path.dirname(h.input_training_file), "id_to_spkr.pkl")
+        if os.path.exists(default_ids):
+            id_to_spkr = load_checkpoint(default_ids)
+
+    stats_for_norm = load_f0_stats(h.f0_stats) if h.f0_normalize and h.f0_stats else None
+    if unseen_f0_path:
+        # the unseen speaker's own stats (reference ``sr/inference.py:148-149``)
+        stats_for_norm = load_f0_stats(unseen_f0_path)
+    dataset = CodeDataset(
+        file_list, -1, h.code_hop_size, h.sampling_rate, multispkr=h.multispkr, f0=h.f0,
+        f0_stats=stats_for_norm, f0_normalize=h.f0_normalize, f0_median=h.f0_median, pad=pad,
+        id_to_spkr=id_to_spkr, eval_mode=True, unseen_speakers=unseen_speaker,
+        f0_device=engine.device)
+    f0_stats = load_f0_stats(f0_stats_path) if f0_stats_path else None
+    pairs = read_pair_csv(sample_df_path) if sample_df_path else None
+
+    n_items = len(dataset) if n == -1 else min(n, len(dataset))
+    items, names = [], []
+    for i in range(n_items):
+        feats = dataset[i]
+        items.append(feats)
+        if parts:
+            # the last 3 path parts (reference ``sr/inference.py:180-182``)
+            names.append("_".join(Path(feats["filename"]).parts[-3:])[:-4])
+        else:
+            names.append(Path(feats["filename"]).stem)
+
+    rtfs = []
+    # resynthesis with the source speaker: not for unseen speakers and not
+    # in pair mode (reference ``sr/inference.py:203``)
+    if not unseen_speaker and pairs is None:
+        wavs, rtf = engine.synthesize_utterances(items, batch_size)
+        rtfs.append(rtf)
+        for name, wav in zip(names, wavs):
+            _write(output_dir, f"{name}_gen.wav", wav, h.sampling_rate)
+
+    if vc and h.multispkr:
+        targets = target_speakers or list(dataset.id_to_spkr)[:5]
+        for t in targets:
+            k = dataset.spkr_to_id[t] if isinstance(t, str) else int(t)
+            t_name = t if isinstance(t, str) else dataset.id_to_spkr[k]
+            vc_items, vc_names = [], []
+            for it, name in zip(items, names):
+                if pairs is not None and t_name not in pairs.get(name.split("_mic2")[0], ()):
+                    continue
+                new_it = dict(it, spkr=np.array([k], np.int32))
+                if f0_stats is not None and h.f0 and not h.f0_normalize:
+                    new_it["f0"] = renorm_f0(it["f0"], k, t, f0_stats)
+                vc_items.append(new_it)
+                vc_names.append(name)
+            if not vc_items:
+                continue
+            wavs, rtf = engine.synthesize_utterances(vc_items, batch_size)
+            rtfs.append(rtf)
+            for name, wav in zip(vc_names, wavs):
+                _write(output_dir, f"{name}_{k}_gen.wav", wav, h.sampling_rate)
+
+    if pairs is None:
+        for name, it in zip(names, items):
+            _write(output_dir, f"{name}_gt.wav", it["audio"], h.sampling_rate)
+    return float(np.mean(rtfs)) if rtfs else 0.0

@@ -1,8 +1,10 @@
-"""The port's training CLIs (``dissc_tpu_torch.cli.{sr_train,train_len,train_f0}``).
+"""The port's training CLIs (``dissc_tpu_torch.cli.{sr_train,train_len,
+train_f0}``), and the flags of all ten ported CLIs.
 
-Every option string of the JAX package's parsers is accepted, found by a
-source scan on both sides as ``tests/test_cli_flag_parity.py`` scans the
-reference.  Each ``main(argv)`` runs end to end with ``--device cpu`` on a
+Every option string of the JAX package's parsers is accepted by the port's
+(the ten CLIs of ``dissc_tpu.cli`` the port has), found by a source scan on
+both sides as ``tests/test_cli_flag_parity.py`` scans the reference.  Each
+training CLI's ``main(argv)`` runs end to end with ``--device cpu`` on a
 toy corpus and writes the artifacts its JAX counterpart writes.
 """
 import os
@@ -26,11 +28,16 @@ def _flags(path: Path) -> set:
     return set(_FLAG_RE.findall(path.read_text()))
 
 
-@pytest.mark.parametrize("name", ["sr_train", "train_len", "train_f0"])
+PORTED_CLIS = ["preprocess", "encode", "prep_dataset", "train_len", "train_f0", "infer",
+               "sr_train", "sr_inference", "eval", "convert_eval"]
+
+
+@pytest.mark.parametrize("name", PORTED_CLIS)
 def test_port_parsers_accept_every_jax_flag(name):
+    jax_src = (REPO / "dissc_tpu" / "cli" / f"{name}.py").read_text()
     jax_flags = _flags(REPO / "dissc_tpu" / "cli" / f"{name}.py")
     port_flags = _flags(REPO / "dissc_tpu_torch" / "cli" / f"{name}.py")
-    assert len(jax_flags) >= 8
+    assert len(jax_flags) == jax_src.count("add_argument(") >= 4  # the scan found every flag
     assert jax_flags <= port_flags, sorted(jax_flags - port_flags)
     assert "--device" in port_flags
 

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ``dissc_tpu``, nothing beyond torch,
-numpy and scipy (no ``transformers``, ``pandas``, ``tensorboardX`` or
-``matplotlib``), no silent CPU run, and no silent switch away from the
-native loaders."""
+numpy and scipy (no ``transformers``, ``pandas``, ``safetensors``,
+``tensorboardX`` or ``matplotlib``: the card's machine has none of them),
+no silent CPU run, and no silent switch away from the native loaders."""
+import os
 import pkgutil
 import subprocess
 import sys
@@ -27,7 +28,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package(tmp_path):
                  "data.flac_native", "data.code_dataset", "data.datasets", "losses.len_loss",
                  "losses.pitch_loss", "train.logging", "train.prosody_trainer",
                  "train.vocoder_trainer", "compat.to_jax", "cli.sr_train", "cli.train_len",
-                 "cli.train_f0"):
+                 "cli.train_f0", "cli.preprocess", "cli.encode", "cli.prep_dataset", "cli.infer",
+                 "cli.sr_inference", "cli.eval", "cli.convert_eval", "eval.textgrid",
+                 "eval.align", "eval.metrics", "eval.asr", "models.whisper",
+                 "models.whisper_files"):
         assert f"dissc_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -36,7 +40,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package(tmp_path):
         "from dissc_tpu_torch import ConversionPipeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dissc_tpu', 'transformers', 'pandas', "
-        "'tensorboardX', 'matplotlib'))\n"
+        "'safetensors', 'tensorboardX', 'matplotlib'))\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, timeout=120,
                    env={"PYTHONPATH": str(REPO), "HOME": str(tmp_path)})
@@ -114,6 +118,37 @@ def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatc
         with pytest.raises(FileNotFoundError):
             cli.main(args + ["--device", "cpu"])
     assert not (tmp_path / "c").exists()  # refused before it wrote anything
+
+
+@pytest.mark.parametrize("name", ["preprocess", "prep_dataset", "encode", "infer",
+                                  "sr_inference", "eval", "convert_eval"])
+def test_conversion_and_eval_clis_raise_without_cuda_unless_cpu_is_asked(name, monkeypatch,
+                                                                          tmp_path):
+    import importlib
+
+    cli = importlib.import_module(f"dissc_tpu_torch.cli.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)  # convert_eval reads and writes relative paths
+    missing, out = str(tmp_path / "missing"), str(tmp_path / "out")
+    argv = {"preprocess": ["--srcdir", missing, "--outdir", out],
+            "prep_dataset": ["--encoded_path", missing, "--stats_path", out],
+            "encode": ["--base_dir", missing, "--out_file", out, "--hubert_weights", missing,
+                       "--kmeans_codebook", missing],
+            "infer": ["--input_path", missing, "--out_path", out, "--pred_len"],
+            "sr_inference": ["--checkpoint_file", missing, "--output_dir", out],
+            "eval": ["--base_path", missing, "--method", "m"],
+            "convert_eval": []}[name]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)
+    assert not os.path.exists(out)  # refused before it wrote anything
+    if name == "preprocess":  # no input files: nothing to do, on the host
+        assert cli.main(argv + ["--device", "cpu"]) == 0
+    else:  # with the CPU asked for, it goes on to read
+        with pytest.raises(FileNotFoundError):
+            cli.main(argv + ["--device", "cpu"])
+    if name in ("infer", "sr_inference"):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            cli.main(argv + ["--data_devices", "2", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("binding", ["native_loader", "flac_native"])
