@@ -8,9 +8,13 @@ fixed seeds: K1's own device time per launch at the shapes
 samples, then two steps under ``torch.profiler``; one serving batch of 8
 utterances x 1024 frames (the shape of ``bench.py``'s vocoder batch); and
 the conversion path at ``bench.py``'s shape (``chip_smoke.py``'s convert
-(a): units, prosody, vocoder), after two warm-up runs.  For each window it
-prints the host wall time, the device kernel time and busy share, the
-kernel time by category and the top kernels by name.
+(a): units, prosody, vocoder), after two warm-up runs; ten F0 quantizer
+train steps at ``DEFAULT_F0_PARAMS`` (batch 16 x 112 frames, the shape of
+``chip_smoke.py``'s phase 9) after ten warm-up steps; and ten
+ECAPA-TDNN embeddings at ``EcapaConfig()`` of a 3 s waveform (fbank and
+forward, as phase 8 scores a file) after two warm-up calls.  For each
+window it prints the host wall time, the device kernel time and busy
+share, the kernel time by category and the top kernels by name.
 """
 from __future__ import annotations
 
@@ -29,6 +33,9 @@ from chip_smoke import (bench_inputs, build_convert_models, convert_stages, kern
 from dissc_tpu_torch.core.config import VocoderConfig
 from dissc_tpu_torch.infer.vocoder import VocoderEngine
 from dissc_tpu_torch.kernels import mel_kernel
+from dissc_tpu_torch.models.ecapa import EcapaConfig, EcapaEmbedder, EcapaTDNN
+from dissc_tpu_torch.models.vq import Quantizer
+from dissc_tpu_torch.train import quantizer_trainer as qt
 from dissc_tpu_torch.train.vocoder_trainer import GANTrainer
 
 CATEGORIES = [  # first match wins, on the lower-cased kernel name
@@ -155,7 +162,48 @@ def main() -> int:
     print(json.dumps({"window": "convert stages", "encode_ms": stage_ms[0],
                       "prosody_ms": stage_ms[1], "vocode_ms": stage_ms[2]}), flush=True)
     report("convert 8 x 10.24 s (units, prosody, vocoder)", prof, wall_ms, 1)
+    del m, engine, trainer
+    torch.cuda.empty_cache()
+    quantizer_window(dev)
+    ecapa_window(dev)
     return 0
+
+
+def quantizer_window(dev: torch.device) -> None:
+    """Ten F0 quantizer train steps at ``DEFAULT_F0_PARAMS``, batch 16 x 112
+    frames, after ten warm-up steps."""
+    model = Quantizer(**qt.DEFAULT_F0_PARAMS, generator=torch.Generator().manual_seed(5)).to(dev)
+    state = qt.QuantizerState(model, qt.make_optimizer(model, 2e-4), 0)
+    step, _ = qt.make_quantizer_steps(0.02)
+    f0 = torch.as_tensor(np.random.default_rng(5).uniform(80, 250, (16, 1, 112))
+                         .astype(np.float32), device=dev)
+    vq_rng = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(10):
+        state, _ = step(state, f0, vq_rng)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, _ = step(state, f0, vq_rng)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    report("F0 quantizer train step b16 x 112 frames", prof, wall_ms, 10)
+
+
+def ecapa_window(dev: torch.device) -> None:
+    """Ten ECAPA-TDNN embeddings at ``EcapaConfig()`` of a 3 s waveform
+    (fbank and forward), after two warm-up calls."""
+    sd = EcapaTDNN(EcapaConfig(), generator=torch.Generator().manual_seed(6)).state_dict()
+    embedder = EcapaEmbedder(sd, device=dev)
+    wav = (np.random.default_rng(6).standard_normal(48000) * 0.1).astype(np.float32)
+    for _ in range(2):
+        embedder(wav)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            embedder(wav)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    report("ECAPA-TDNN embedding of 3 s", prof, wall_ms, 10)
 
 
 if __name__ == "__main__":

@@ -57,7 +57,29 @@ HuBERT-base, with weights drawn from a fixed seed:
    Whisper medium.en written from seeds as a local HF directory; every
    output, DTW grid and metric checked, every stage timed; (c) the card
    against the CPU (``run_inference``, ``calc_errors``, Whisper at a
-   reduced config); (d) Whisper medium.en's encoder and decode step timed.
+   reduced config); (d) Whisper medium.en's encoder and decode step timed;
+8. speaker verification, over phase 7's tree, with the launch counters set
+   to 0 just before and read just after (no kernel of the port): a pair CSV
+   with a leading index column (each val utterance converted to the three
+   other speakers, scored against the target's own utterance and another
+   speaker's) and a speechbrain-keyed ECAPA-TDNN at ``EcapaConfig()`` width
+   from a seed, then ``cli.convert_eval_sv --data vctk --dissc_type dissc_b
+   --speechbrain_ckpt``; every restructured file checked and the EER held
+   to ``compute_eer`` of the scores recomputed from the files, each stage
+   and ECAPA's ms a file timed; (b) ECAPA card vs CPU on 3 files;
+9. F0-VQ and k-means, with the launch counters set to 0 just before and
+   read just after (no kernel of the port): (a)-(b) an ``F0Dataset`` of
+   8960-sample crops over phase 6's corpus, ``train_f0_quantizer`` at
+   ``DEFAULT_F0_PARAMS``, batch 16, 40 steps, ``g_`` every 20 (finite
+   losses, the codebook bootstrapped by step 1, the last ``g_`` reloaded
+   gives the same eval mse); (c) ``CodeGenerator`` at ``VocoderConfig()``
+   with ``lambda_commit`` (conditioning 384 channels) at batch 64 x 28
+   codes, timed, and card vs CPU at a small width; (d) ``train_kmeans``,
+   k=100, 5 epochs, over HuBERT-base layer-6 features of phase 5's inputs
+   (4,096 x 768), timed; every step of a recorded card run redone on the
+   CPU from the card's state, and the final assignment: a label that flips
+   is reported with its tie's gap, which must lie within f32's rounding of
+   the distance expansion, and the centroids no flip touched within 1e-4.
 
 It exits non-zero on any failure and without a card.  The line before
 the last is the ``kernels`` JSON object; the last line is
@@ -67,6 +89,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import glob
 import json
@@ -78,6 +101,7 @@ import sys
 import tempfile
 import time
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1355,34 +1379,21 @@ def write_convert_checkpoints(root: str, h: VocoderConfig, hub_cfg, dev: torch.d
         json.dump(dict(h.to_dict(), input_training_file="data/VCTK/hubert100/train.txt"), f)
 
 
-def convert_eval_run(root: str, h: VocoderConfig, hub_cfg, whisper_cfg, dev: torch.device,
-                     seconds=(2.0, 5.0), workers: int = 2) -> dict:
-    """Data prep and ``cli.convert_eval --data vctk --dissc_type dissc_b
-    --sort_gt --dtw_align --whisper_model`` in ``root``, on ``dev``, every
-    stage timed; checks the outputs and returns the raw errors and the
-    timings."""
-    from dissc_tpu_torch.cli import convert_eval, encode, infer, prep_dataset, preprocess
-    from dissc_tpu_torch.cli import sr_inference
+def prepare_vctk(root: str, h: VocoderConfig, hub_cfg, whisper_cfg, dev: torch.device,
+                 seconds=(2.0, 5.0), workers: int = 2, model_ms: Optional[list] = None) -> list:
+    """The VCTK-shaped tree that ``convert_eval`` and ``convert_eval_sv``
+    read, in ``root``: the corpus through ``cli.preprocess --trim --pad``
+    (FLAC ground truth and its reference grids beside it), every checkpoint
+    (and, given ``whisper_cfg``, a Whisper directory; their writing time
+    appended to ``model_ms``), ``cli.encode`` and ``cli.prep_dataset
+    --split_method paired_val``, with f0 stats for all 107 speakers.
+    Returns the stems."""
+    from dissc_tpu_torch.cli import encode, prep_dataset, preprocess
     from dissc_tpu_torch.core.wav import read_wav
-    from dissc_tpu_torch.eval import align, asr, metrics
-    from dissc_tpu_torch.models.whisper import WhisperTranscriber
 
     device = ["--device", str(dev)]
-    timed = ((preprocess, "main", "preprocess"), (encode, "main", "encode"),
-             (prep_dataset, "main", "prep_dataset"), (infer, "main", "infer"),
-             (sr_inference, "main", "sr_inference"),
-             (convert_eval, "restructure", "restructure"),
-             (convert_eval, "sort_ground_truth", "sort_gt"),
-             (align, "write_dtw_textgrids", "align"), (metrics, "calc_errors", "metrics"),
-             (asr, "load_whisper", "load_whisper"), (metrics, "get_yaapt", "yaapt_per_file"),
-             (align, "align_textgrid", "dtw_per_file"), (align, "dtw_path", "dtw_dp_per_file"),
-             (WhisperTranscriber, "__call__", "transcribe_per_file"))
-    log = {key: [] for _, _, key in timed}
-    log["write_models"] = []
     stems = write_vctk_corpus(root, seconds)
-    with contextlib.chdir(root), contextlib.ExitStack() as stack:
-        for mod, name, key in timed:
-            stack.enter_context(timed_calls(mod, name, log[key]))
+    with contextlib.chdir(root):
         preprocess.main(["--srcdir", "raw", "--outdir", "data/VCTK/wav", "--trim", "--pad",
                          "--workers", str(workers)] + device)
         for stem in stems:  # the ground truth as VCTK ships it, FLAC
@@ -1392,8 +1403,10 @@ def convert_eval_run(root: str, h: VocoderConfig, hub_cfg, whisper_cfg, dev: tor
                                  f"data/VCTK/txt/{stem.split('_')[0]}/{stem}.txt", len(x) / sr)
         t0 = time.perf_counter()
         write_convert_checkpoints(".", h, hub_cfg, dev)
-        write_whisper_dir("models/whisper", whisper_cfg)
-        log["write_models"].append(1e3 * (time.perf_counter() - t0))
+        if whisper_cfg is not None:
+            write_whisper_dir("models/whisper", whisper_cfg)
+        if model_ms is not None:
+            model_ms.append(1e3 * (time.perf_counter() - t0))
         n_enc = encode.main(["--base_dir", "data/VCTK/wav", "--out_file",
                              "data/VCTK/hubert100/all.txt", "--hubert_weights",
                              "models/hubert.pkl", "--kmeans_codebook", "models/km100.npy"]
@@ -1410,7 +1423,38 @@ def convert_eval_run(root: str, h: VocoderConfig, hub_cfg, whisper_cfg, dev: tor
             stats.setdefault(name, {"mean": 150.0, "std": 20.0})
         with open("data/VCTK/hubert100/f0_stats.pkl", "wb") as f:
             pickle.dump(stats, f)
+    return stems
 
+
+def convert_eval_run(root: str, h: VocoderConfig, hub_cfg, whisper_cfg, dev: torch.device,
+                     seconds=(2.0, 5.0), workers: int = 2) -> dict:
+    """Data prep (:func:`prepare_vctk`) and ``cli.convert_eval --data vctk
+    --dissc_type dissc_b --sort_gt --dtw_align --whisper_model`` in
+    ``root``, on ``dev``, every stage timed; checks the outputs and returns
+    the raw errors and the timings."""
+    from dissc_tpu_torch.cli import convert_eval, encode, infer, prep_dataset, preprocess
+    from dissc_tpu_torch.cli import sr_inference
+    from dissc_tpu_torch.eval import align, asr, metrics
+    from dissc_tpu_torch.models.whisper import WhisperTranscriber
+
+    device = ["--device", str(dev)]
+    timed = ((preprocess, "main", "preprocess"), (encode, "main", "encode"),
+             (prep_dataset, "main", "prep_dataset"), (infer, "main", "infer"),
+             (sr_inference, "main", "sr_inference"),
+             (convert_eval, "restructure", "restructure"),
+             (convert_eval, "sort_ground_truth", "sort_gt"),
+             (align, "write_dtw_textgrids", "align"), (metrics, "calc_errors", "metrics"),
+             (asr, "load_whisper", "load_whisper"), (metrics, "get_yaapt", "yaapt_per_file"),
+             (align, "align_textgrid", "dtw_per_file"), (align, "dtw_path", "dtw_dp_per_file"),
+             (WhisperTranscriber, "__call__", "transcribe_per_file"))
+    log = {key: [] for _, _, key in timed}
+    log["write_models"] = []
+    with contextlib.ExitStack() as stack:
+        for mod, name, key in timed:
+            stack.enter_context(timed_calls(mod, name, log[key]))
+        stems = prepare_vctk(root, h, hub_cfg, whisper_cfg, dev, seconds, workers,
+                             log["write_models"])
+        stack.enter_context(contextlib.chdir(root))
         errs = convert_eval.main(["--data", "vctk", "--dissc_type", "dissc_b", "--sort_gt",
                                   "--dtw_align", "--whisper_model", "models/whisper"] + device)
 
@@ -1583,42 +1627,47 @@ def convert_eval_card_vs_cpu(root: str, dev: torch.device) -> dict:
     return out
 
 
-def convert_eval_phase(h: VocoderConfig, dev: torch.device) -> None:
-    """Phase 7 at full width: HuBERT-base (layer 6), ``ProsodyConfig()``,
-    ``VocoderConfig()``, Whisper medium.en, weights from seeds."""
+def card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def convert_eval_phase(h: VocoderConfig, dev: torch.device, root: str) -> None:
+    """Phase 7 at full width in ``root`` (which phase 8 reads next):
+    HuBERT-base (layer 6), ``ProsodyConfig()``, ``VocoderConfig()``, Whisper
+    medium.en, weights from seeds."""
     from dissc_tpu_torch.models.whisper import WhisperConfig
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card_name()
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ce_") as root:
-        t0 = time.perf_counter()
-        run = convert_eval_run(root, h, HubertConfig(), WhisperConfig(), dev)
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log = run["log"]
-        stage = {k: float(np.sum(log[k])) for k in ("preprocess", "encode", "prep_dataset",
-                                                    "write_models", "infer", "sr_inference",
-                                                    "restructure", "sort_gt", "align",
-                                                    "metrics", "load_whisper")}
-        per_file = {k: log[k] for k in ("yaapt_per_file", "dtw_per_file", "dtw_dp_per_file",
-                                        "transcribe_per_file")}
-        errs = run["errs"]
-        print("convert+eval (b) convert_eval", json.dumps({
-            "card": smi, "pairs": run["pairs"], "utterances": len(run["stems"]),
-            "ffe_kept_words_phones": run["ffe_kept"],
-            "stage_ms": stage, "per_file_ms": per_file, "phase_wall_s": wall,
-            "peak_gib": peak, "wer": errs["wer_s"] / max(errs["wer_d"], 1),
-            "cer": errs["cer_s"] / max(errs["cer_d"], 1), "emd": errs["emd"],
-            "len": errs["len"], "w_ffe": errs["w_ffe"], "p_ffe": errs["p_ffe"]}), flush=True)
-        t1 = time.perf_counter()
-        cmp = convert_eval_card_vs_cpu(root, dev)
-        check(cmp["calc_errors_ffe_entries"] == [run["pairs"]] * 2,
-              f"FFE on the uniform grids for every pair: {cmp['calc_errors_ffe_entries']}")
-        print("convert+eval (c) card vs CPU", json.dumps(dict(cmp, card=smi,
-              wall_s=time.perf_counter() - t1)), flush=True)
-        torch.cuda.reset_peak_memory_stats()
-        timing = whisper_timing(f"{root}/models/whisper", dev)
+    t0 = time.perf_counter()
+    run = convert_eval_run(root, h, HubertConfig(), WhisperConfig(), dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log = run["log"]
+    stage = {k: float(np.sum(log[k])) for k in ("preprocess", "encode", "prep_dataset",
+                                                "write_models", "infer", "sr_inference",
+                                                "restructure", "sort_gt", "align",
+                                                "metrics", "load_whisper")}
+    per_file = {k: log[k] for k in ("yaapt_per_file", "dtw_per_file", "dtw_dp_per_file",
+                                    "transcribe_per_file")}
+    errs = run["errs"]
+    print("convert+eval (b) convert_eval", json.dumps({
+        "card": smi, "pairs": run["pairs"], "utterances": len(run["stems"]),
+        "ffe_kept_words_phones": run["ffe_kept"],
+        "stage_ms": stage, "per_file_ms": per_file, "phase_wall_s": wall,
+        "peak_gib": peak, "wer": errs["wer_s"] / max(errs["wer_d"], 1),
+        "cer": errs["cer_s"] / max(errs["cer_d"], 1), "emd": errs["emd"],
+        "len": errs["len"], "w_ffe": errs["w_ffe"], "p_ffe": errs["p_ffe"]}), flush=True)
+    t1 = time.perf_counter()
+    cmp = convert_eval_card_vs_cpu(root, dev)
+    check(cmp["calc_errors_ffe_entries"] == [run["pairs"]] * 2,
+          f"FFE on the uniform grids for every pair: {cmp['calc_errors_ffe_entries']}")
+    print("convert+eval (c) card vs CPU", json.dumps(dict(cmp, card=smi,
+          wall_s=time.perf_counter() - t1)), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    timing = whisper_timing(f"{root}/models/whisper", dev)
+    shutil.rmtree(f"{root}/models/whisper")  # 3 GB that phase 8 does not read
     print("convert+eval (d) Whisper medium.en", json.dumps(dict(timing, card=smi)), flush=True)
     check(cmp["run_inference_max_abs_err"] <= 1e-4,
           f"run_inference waveforms card vs CPU: {cmp['run_inference_max_abs_err']}")
@@ -1634,14 +1683,416 @@ def convert_eval_phase(h: VocoderConfig, dev: torch.device) -> None:
           "Whisper greedy tokens card vs CPU")
 
 
+# ---------------------------------------------------------------------------
+# 8. speaker verification: convert_eval_sv over phase 7's tree, EER by ECAPA-TDNN
+# ---------------------------------------------------------------------------
+
+
+def write_sv_pairs(path: str, stems: list) -> list:
+    """``speaker_verification.csv`` with a leading index column, as pandas'
+    ``to_csv`` writes it: each val utterance converted to each other
+    speaker, scored against the target's own train utterance (label 1) and
+    against the next speaker's (label 0).  Returns the rows."""
+    val = [s for s in stems if int(s.split("_")[1]) <= 24]
+    refs = {s.split("_")[0]: s for s in stems if int(s.split("_")[1]) > 24}
+    spk = list(CE_SPEAKERS)
+    rows = []
+    for sample in val:
+        for trg in spk:
+            if sample.startswith(trg):
+                continue
+            other = spk[(spk.index(trg) + 1) % len(spk)]
+            rows += [dict(ref=refs[trg], syn_trgt=trg, syn_sample=sample, label="1"),
+                     dict(ref=refs[other], syn_trgt=trg, syn_sample=sample, label="0")]
+    with open(path, "w") as f:
+        f.write(",ref,syn_trgt,syn_sample,label\n")
+        f.writelines(f"{i},{r['ref']},{r['syn_trgt']},{r['syn_sample']},{r['label']}\n"
+                     for i, r in enumerate(rows))
+    return rows
+
+
+def write_ecapa_checkpoint(path: str, seed: int = 22) -> None:
+    """A speechbrain-keyed ECAPA-TDNN ``embedding_model.ckpt`` at
+    ``EcapaConfig()`` width from a seed, with BatchNorm scales, shifts and
+    running statistics away from their defaults."""
+    from dissc_tpu_torch.models.ecapa import EcapaConfig, EcapaTDNN
+
+    g = torch.Generator().manual_seed(seed)
+    model = EcapaTDNN(EcapaConfig(), generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                n = m.num_features
+                m.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    torch.save(model.state_dict(), path)
+
+
+def convert_eval_sv_run(root: str, dev: torch.device) -> dict:
+    """``cli.convert_eval_sv --data vctk --dissc_type dissc_b
+    --speechbrain_ckpt`` in ``root`` (a tree :func:`prepare_vctk` wrote),
+    on ``dev``, every stage timed; checks the restructured files and that
+    the EER is ``compute_eer`` of the scores recomputed from them.  Returns
+    the EER, the scores, the rows and the timings."""
+    from dissc_tpu_torch.cli import convert_eval_sv, eval_sv, infer, sr_inference
+    from dissc_tpu_torch.eval import sv
+    from dissc_tpu_torch.models.ecapa import (EcapaConfig, EcapaEmbedder,
+                                              convert_speechbrain_state_dict)
+
+    timed = ((infer, "main", "infer"), (sr_inference, "main", "sr_inference"),
+             (convert_eval_sv, "restructure", "restructure"), (eval_sv, "main", "eer"),
+             (eval_sv, "load_embedder", "load_ecapa"), (EcapaEmbedder, "__call__", "ecapa_per_file"))
+    log = {key: [] for _, _, key in timed}
+    with contextlib.chdir(root), contextlib.ExitStack() as stack:
+        stems = sorted(f[:-len("_mic2.flac")] for f in os.listdir("data/VCTK/wav")
+                       if f.endswith("_mic2.flac"))
+        rows = write_sv_pairs("data/VCTK/speaker_verification.csv", stems)
+        write_ecapa_checkpoint("models/embedding_model.ckpt")
+        for mod, name, key in timed:
+            stack.enter_context(timed_calls(mod, name, log[key]))
+        eer = convert_eval_sv.main(["--data", "vctk", "--dissc_type", "dissc_b",
+                                    "--speechbrain_ckpt", "models/embedding_model.ckpt",
+                                    "--device", str(dev)])
+        stack.close()
+        syn = [f"results/vctk/sv/dissc_b/{r['syn_trgt']}/{r['syn_sample']}.wav" for r in rows]
+        check(all(os.path.isfile(p) for p in syn), "a restructured file for every CSV row")
+        check(os.path.isfile("results/vctk/speaker_verification.csv"), "the CSV beside results")
+        check(eer is not None and 0.0 <= eer <= 1.0, f"EER {eer} in [0, 1]")
+        sd = convert_speechbrain_state_dict(
+            torch.load("models/embedding_model.ckpt", map_location="cpu", weights_only=True))
+        score = sv.cosine_scorer(EcapaEmbedder(sd, EcapaConfig(), device=dev))
+        scores = {0: [], 1: []}
+        for r, path in zip(rows, syn):
+            scores[int(r["label"])].append(score(f"data/VCTK/wav/{r['ref']}_mic2.flac", path))
+        again = sv.compute_eer(np.asarray(scores[1]), np.asarray(scores[0]))[0]
+        check(again == eer, f"EER {eer} is compute_eer of the recomputed scores ({again})")
+        check(len(log["sr_inference"]) == len(CE_SPEAKERS), "sr_inference once a target")
+        check(len(log["ecapa_per_file"]) == 2 * len(rows), "ECAPA on both files of each row")
+    return {"eer": eer, "scores": scores, "rows": rows, "syn": syn, "log": log, "sd": sd}
+
+
+def sv_card_vs_cpu(root: str, run: dict, dev: torch.device) -> dict:
+    """ECAPA on the card against the CPU: the embeddings of 3 restructured
+    files (relative to their largest entry) and their cosine scores."""
+    from dissc_tpu_torch.core.wav import read_audio
+    from dissc_tpu_torch.models.ecapa import EcapaConfig, EcapaEmbedder
+
+    wavs = [read_audio(f"{root}/{p}", dtype="float32")[0] for p in run["syn"][:6:2]]
+    emb = {str(d): np.stack([EcapaEmbedder(run["sd"], EcapaConfig(), device=d)(w)
+                             for w in wavs]) for d in (dev, "cpu")}
+    a, b = emb[str(dev)], emb["cpu"]
+
+    def cos(e):
+        n = e / np.linalg.norm(e, axis=1, keepdims=True)
+        return n @ n.T
+
+    return {"files": len(wavs),
+            "embedding_max_rel_err": float(np.max(np.abs(a - b).max(1) / np.abs(b).max(1))),
+            "cosine_max_abs_err": float(np.abs(cos(a) - cos(b)).max())}
+
+
+def sv_phase(root: str, dev: torch.device) -> None:
+    """Phase 8 at ``EcapaConfig()`` width over phase 7's tree."""
+    smi = card_name()
+    t0 = time.perf_counter()
+    run = convert_eval_sv_run(root, dev)
+    wall = time.perf_counter() - t0
+    log = run["log"]
+    print("speaker verification (a) convert_eval_sv", json.dumps({
+        "card": smi, "rows": len(run["rows"]), "eer": run["eer"],
+        "positive_scores": run["scores"][1], "negative_scores": run["scores"][0],
+        "stage_ms": {k: float(np.sum(log[k])) for k in ("infer", "sr_inference",
+                                                        "restructure", "load_ecapa", "eer")},
+        "ecapa_ms_per_file": log["ecapa_per_file"], "phase_wall_s": wall}), flush=True)
+    t1 = time.perf_counter()
+    cmp = sv_card_vs_cpu(root, run, dev)
+    print("speaker verification (b) card vs CPU", json.dumps(
+        dict(cmp, card=smi, wall_s=time.perf_counter() - t1)), flush=True)
+    check(cmp["embedding_max_rel_err"] <= 1e-4,
+          f"ECAPA embeddings card vs CPU, relative {cmp['embedding_max_rel_err']}")
+    check(cmp["cosine_max_abs_err"] <= 1e-5, f"cosine scores card vs CPU: "
+                                             f"{cmp['cosine_max_abs_err']}")
+
+
+# ---------------------------------------------------------------------------
+# 9. F0-VQ and k-means: the quantizer trainer, the VQ CodeGenerator, a unit codebook
+# ---------------------------------------------------------------------------
+
+F0_SEGMENT = 8960  # 112 f0 frames at 200 Hz: 7 codes after the encoder's 16x
+
+
+@contextlib.contextmanager
+def recorded_quantizer_steps(log: list):
+    """While open, every quantizer ``train_step`` appends its card time (ms,
+    synchronised), its metrics and whether the codebook is initialised."""
+    from dissc_tpu_torch.train import quantizer_trainer
+
+    make = quantizer_trainer.make_quantizer_steps
+
+    def recording_make(*args, **kw):
+        train_step, eval_step = make(*args, **kw)
+
+        def step(state, f0, generator=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, f0, generator)
+            torch.cuda.synchronize()
+            initted = all(bool(b.initted) for b in state.model.vq.level_blocks)
+            log.append(dict({k: float(v) for k, v in metrics.items()},
+                            ms=1e3 * (time.perf_counter() - t0), initted=initted))
+            return state, metrics
+
+        return step, eval_step
+
+    quantizer_trainer.make_quantizer_steps = recording_make
+    try:
+        yield log
+    finally:
+        quantizer_trainer.make_quantizer_steps = make
+
+
+def quantizer_run(root: str, dev: torch.device, steps: int = 40, batch: int = 16,
+                  interval: int = 20, params=None, segment: int = F0_SEGMENT) -> dict:
+    """(a) + (b): ``F0Dataset`` over the 16 kHz corpus in ``root`` and
+    ``train_f0_quantizer``, every step recorded; the last ``g_`` reloaded
+    gives the trained model's eval reconstruction."""
+    from dissc_tpu_torch.compat.from_jax import quantizer_state_dict
+    from dissc_tpu_torch.data.code_dataset import F0Dataset
+    from dissc_tpu_torch.models.vq import Quantizer
+    from dissc_tpu_torch.train import quantizer_trainer as qt
+
+    params = params or qt.DEFAULT_F0_PARAMS
+    files = sorted(glob.glob(f"{root}/p*.wav"))
+    ds = F0Dataset(files, segment, 16000, f0_device=dev)
+    item = ds[0]
+    check(item["f0"].shape == (segment // 80, 1) and item["audio"].shape == (segment,),
+          f"F0Dataset item: f0 {item['f0'].shape}, audio {item['audio'].shape}")
+    ds = F0Dataset(files, segment, 16000, f0_device=dev)
+    log, yaapt_ms = [], []
+    t0 = time.perf_counter()
+    with recorded_quantizer_steps(log), timed_calls(yaapt, "yaapt_f0", yaapt_ms):
+        state = qt.train_f0_quantizer(ds, f"{root}/f0_vq", batch_size=batch, training_steps=steps,
+                                      checkpoint_interval=interval, quantizer_params=params,
+                                      device=dev)
+    wall = time.perf_counter() - t0
+    check(state.step == steps == len(log), f"{state.step} steps, {len(log)} recorded")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["commit"]) for r in log), "finite losses")
+    check(log[0]["initted"], "the codebook bootstrapped by step 1")
+    check(all(k in log[-1] for k in ("usage", "entropy", "used_curr")), "usage/entropy read")
+    want = sorted({f"g_{s:08d}" for s in [*range(interval, steps + 1, interval), steps]})
+    got = sorted(f for f in os.listdir(f"{root}/f0_vq") if f.startswith("g_"))
+    check(got == want, f"checkpoints {got}, want {want}")
+    ckpt = load_checkpoint(f"{root}/f0_vq/g_{steps:08d}")
+    back = Quantizer(**params).to(dev)
+    back.load_state_dict(quantizer_state_dict(ckpt["generator"], ckpt["vq_state"], params))
+    _, eval_step = qt.make_quantizer_steps()
+    f0 = torch.as_tensor(np.stack([ds[i]["f0"] for i in range(batch)]), device=dev).transpose(1, 2)
+    trained = float(eval_step(state, f0))
+    reloaded = float(eval_step(state._replace(model=back), f0))
+    check(reloaded == trained, f"eval mse of the reloaded g_ {reloaded} == trained {trained}")
+    return {"steps": log, "wall_s": wall, "eval_mse": trained, "yaapt_ms": yaapt_ms}
+
+
+def vq_generator_config(h: VocoderConfig, params) -> VocoderConfig:
+    """``h`` with ``lambda_commit`` 0.02 and the F0 quantizer's encoder and
+    VQ; the conditioning is units + quantised f0 + speaker."""
+    enc = params["f0_encoder_params"]
+    return dataclasses.replace(h, lambda_commit=0.02, f0_encoder_params=enc,
+                               f0_vq_params=params["f0_vq_params"],
+                               model_in_dim=2 * h.embedding_dim + enc["output_emb_width"])
+
+
+def vq_generator(h: VocoderConfig, dev, seed: int = 23, state=None):
+    """The VQ ``CodeGenerator`` on ``dev`` in eval mode: weights from
+    ``seed``, or ``state`` (a state dict) in their place."""
+    from dissc_tpu_torch.models.hifigan import CodeGenerator
+
+    model = CodeGenerator(h, generator=generator_for(seed))
+    if state is not None:
+        model.load_state_dict(state)
+    return model.to(dev).eval()
+
+
+def vq_forward(model, dev, batch: int, codes: int, seed: int = 23):
+    """One forward on inputs from ``seed``: ``codes`` units (a multiple of 4,
+    for the encoder's 16x), f0 at 4x the code rate, speakers; the codebook's
+    restart draws from a generator of the same seed.  Returns (wav, commit
+    losses, metrics)."""
+    rng = np.random.default_rng(seed)
+    code = torch.as_tensor(rng.integers(0, model.h.num_embeddings, (batch, codes)), device=dev)
+    f0 = torch.as_tensor(rng.uniform(-1, 1, (batch, 4 * codes, 1)).astype(np.float32),
+                         device=dev)
+    spkr = torch.as_tensor(rng.integers(0, 200, (batch, 1)), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.inference_mode():
+        return model(code, f0, spkr, generator=g)
+
+
+SMALL_VQ = dict(
+    f0_encoder_params=dict(input_emb_width=1, output_emb_width=16, levels=1, downs_t=[4],
+                           strides_t=[2], width=16, depth=2, m_conv=1.0, dilation_growth_rate=3),
+    f0_vq_params=dict(l_bins=8, emb_width=16, mu=0.99, levels=1),
+    f0_decoder_params=dict(input_emb_width=1, output_emb_width=16, levels=1, downs_t=[4],
+                           strides_t=[2], width=16, depth=2, m_conv=1.0, dilation_growth_rate=3))
+
+
+def vq_generator_card_vs_cpu(dev: torch.device) -> float:
+    """(c) at a small width: the codebook bootstrapped once on the CPU (the
+    restart draws differ by device), then one forward on other inputs on
+    the card and on the CPU from that state; returns the waveforms' max abs
+    difference."""
+    h = vq_generator_config(VocoderConfig(upsample_initial_channel=32, embedding_dim=8),
+                            SMALL_VQ)
+    model = vq_generator(h, "cpu")
+    vq_forward(model, "cpu", 2, 12)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    wav = {str(d): vq_forward(vq_generator(h, d, state=state), d, 2, 12, seed=24)[0].cpu()
+           for d in (dev, "cpu")}
+    return float((wav[str(dev)] - wav["cpu"]).abs().max())
+
+
+def hubert_features(dev: torch.device) -> list:
+    """Phase 5's HuBERT-base (seed 7, layer 6) on its first batch of
+    ``bench.py``'s inputs: 8 arrays of 512 x 768 features."""
+    hub_cfg = HubertConfig()
+    encoder = SpeechUnitEncoder(init_state_dict(hub_cfg, torch.Generator().manual_seed(7)),
+                                np.zeros((100, hub_cfg.hidden_size), np.float32), hub_cfg,
+                                device=dev)
+    wavs, _ = bench_inputs(np.random.default_rng(9))
+    with torch.inference_mode():
+        feats = encoder.model(torch.as_tensor(wavs, device=dev)).cpu().numpy()
+    del encoder
+    torch.cuda.empty_cache()
+    return list(feats)
+
+
+@contextlib.contextmanager
+def recorded_kmeans_steps(log: list):
+    """While open, every ``minibatch_update`` appends host copies of its
+    batch, centroids and counts in, the labels it gave and the centroids
+    out."""
+    from dissc_tpu_torch.models import kmeans
+
+    update = kmeans.minibatch_update
+
+    def recording(x, centroids, counts):
+        out = update(x, centroids, counts)
+        log.append(dict(x=x.cpu(), c=centroids.cpu(), n=counts.cpu(),
+                        labels=kmeans.assign(x, centroids).cpu(), c_out=out[0].cpu()))
+        return out
+
+    kmeans.minibatch_update = recording
+    try:
+        yield log
+    finally:
+        kmeans.minibatch_update = update
+
+
+def kmeans_card_vs_cpu(feats: list, dev: torch.device, k: int = 100, epochs: int = 5) -> dict:
+    """(d): ``train_kmeans`` on the card, timed; then every step of a recorded
+    card run redone on the CPU from the card's own state, and the final
+    assignment of every feature.  A label the CPU gives otherwise is a flip:
+    it is reported with its tie's gap, relative to the squared distance and
+    to the magnitude the f32 expansion ``|x|^2 - 2 x.c + |c|^2`` cancels.
+    The centroids of each step's clusters that no flip touched are held to
+    the CPU's within 1e-4."""
+    from dissc_tpu_torch.models import kmeans
+
+    kmeans.train_kmeans(feats[:1], k=k, n_epochs=1, seed=0, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, inertia = kmeans.train_kmeans(feats, k=k, n_epochs=epochs, seed=0, device=dev)
+    card_s = time.perf_counter() - t0
+    log = []
+    with recorded_kmeans_steps(log):
+        cents, _ = kmeans.train_kmeans(feats, k=k, n_epochs=epochs, seed=0, device=dev)
+    steps = len(log)
+    x = torch.as_tensor(np.concatenate(feats))
+    c = torch.as_tensor(cents)
+    log.append(dict(x=x, c=c, labels=kmeans.assign(x.to(dev), c.to(dev)).cpu(), c_out=None))
+    flips, gaps, ties, touched_all, err = 0, [], [], set(), 0.0
+    for st in log:
+        labels = kmeans.assign(st["x"], st["c"])
+        differ = torch.nonzero(labels != st["labels"]).flatten().tolist()
+        flips += len(differ)
+        touched = set()
+        xd, cd = st["x"].double(), st["c"].double()
+        for i in differ:
+            a, b = int(st["labels"][i]), int(labels[i])
+            touched |= {a, b}
+            da, db = (float(((xd[i] - cd[j]) ** 2).sum()) for j in (a, b))
+            scale = float((xd[i] ** 2).sum()) + max(float((cd[j] ** 2).sum()) for j in (a, b))
+            gaps.append(abs(da - db) / db)
+            ties.append(abs(da - db) / scale)
+        touched_all |= touched
+        if st["c_out"] is not None:
+            c_cpu = kmeans.minibatch_update(st["x"], st["c"], st["n"])[0]
+            keep = [j for j in range(k) if j not in touched]
+            err = max(err, float((c_cpu[keep] - st["c_out"][keep]).abs().max()))
+    return {"card_s": card_s, "inertia": inertia, "steps": steps, "flipped_labels": flips,
+            "flip_gap_over_distance": gaps, "flip_gap_over_cancelled_terms": ties,
+            "clusters_touched_by_flips": sorted(touched_all), "centroid_max_abs_err": err}
+
+
+def f0_vq_phase(h: VocoderConfig, dev: torch.device) -> None:
+    """Phase 9: (a)-(b) the F0 quantizer over phase 6's corpus, (c) the VQ
+    ``CodeGenerator`` at ``VocoderConfig()`` width, (d) a k-means codebook
+    over HuBERT-base features."""
+    from dissc_tpu_torch.train.quantizer_trainer import DEFAULT_F0_PARAMS
+
+    smi = card_name()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vq_") as root:
+        write_vocoder_corpus(root)
+        run = quantizer_run(root, dev)
+    step_ms = [r["ms"] for r in run["steps"]]
+    print("F0-VQ (b) train_f0_quantizer", json.dumps({
+        "card": smi, "steps": len(step_ms), "batch": 16, "ms_per_step": step_ms,
+        "loss": [r["loss"] for r in run["steps"]], "usage": [r["usage"] for r in run["steps"]],
+        "entropy": [r["entropy"] for r in run["steps"]], "eval_mse": run["eval_mse"],
+        "yaapt_calls": len(run["yaapt_ms"]), "yaapt_ms_total": float(np.sum(run["yaapt_ms"])),
+        "wall_s": run["wall_s"]}), flush=True)
+
+    hv = vq_generator_config(h, DEFAULT_F0_PARAMS)
+    torch.cuda.reset_peak_memory_stats()
+    model = vq_generator(hv, dev)
+    fwd_ms = []
+    for _ in range(4):  # the first warms cuDNN up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav, commit, metrics = vq_forward(model, dev, 64, 28)
+        torch.cuda.synchronize()
+        fwd_ms.append(1e3 * (time.perf_counter() - t0))
+    del model
+    check(tuple(wav.shape) == (64, 28 * 320) and bool(torch.isfinite(wav).all()),
+          f"VQ generator output {tuple(wav.shape)}, finite")
+    g_err = vq_generator_card_vs_cpu(dev)
+    print("F0-VQ (c) VQ CodeGenerator", json.dumps({
+        "card": smi, "batch": 64, "codes": 28, "f0_frames": 112, "model_in_dim": hv.model_in_dim,
+        "forward_ms": fwd_ms, "commit": float(commit[0]),
+        "usage": float(metrics[0]["usage"]), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "card_vs_cpu_wave_max_abs_err": g_err}), flush=True)
+    check(g_err <= 1e-4, f"VQ CodeGenerator waveforms card vs CPU: {g_err}")
+
+    feats = hubert_features(dev)
+    km = kmeans_card_vs_cpu(feats, dev)
+    print("F0-VQ (d) k-means", json.dumps(dict(km, card=smi, k=100, epochs=5, features=[
+        sum(len(f) for f in feats), feats[0].shape[1]])), flush=True)
+    check(km["steps"] == 5 * len(feats), f"{km['steps']} k-means steps")
+    # f32 rounding of 768-term dot products: a few ulps of the cancelled terms
+    check(km["flipped_labels"] == 0 or max(km["flip_gap_over_cancelled_terms"]) <= 1e-5,
+          f"labels that flip card vs CPU are near ties: {km['flip_gap_over_cancelled_terms']}")
+    check(km["centroid_max_abs_err"] <= 1e-4,
+          f"k-means centroids card vs CPU (clusters no flip touched): "
+          f"{km['centroid_max_abs_err']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_name().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -1676,10 +2127,25 @@ def main() -> int:
 
     loop_launches = train_loop_phase(h, dev)
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ce_") as ce_root:
+        mel_kernel.reset_launch_counts()
+        convert_eval_phase(h, dev, ce_root)
+        check(mel_kernel.launch_counts["mel_spectrogram"] == 0,
+              "the convert + eval path launched no kernel of the port")
+        t0 = time.perf_counter()
+        mel_kernel.reset_launch_counts()
+        sv_phase(ce_root, dev)
+        check(mel_kernel.launch_counts["mel_spectrogram"] == 0,
+              "the speaker-verification path launched no kernel of the port")
+        print(f"speaker verification: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     mel_kernel.reset_launch_counts()
-    convert_eval_phase(h, dev)
+    f0_vq_phase(h, dev)
     check(mel_kernel.launch_counts["mel_spectrogram"] == 0,
-          "the convert + eval path launched no kernel of the port")
+          "the F0-VQ and k-means paths launched no kernel of the port")
+    print(f"F0-VQ and k-means: phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [{"name": "mel_spectrogram", "route": "cuda",
                 "source": "dissc_tpu_torch/csrc/mel_kernel.cu",

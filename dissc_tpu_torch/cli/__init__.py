@@ -11,6 +11,8 @@ the JAX package's flags (``dissc_tpu.cli``) plus ``--device``:
   python -m dissc_tpu_torch.cli.sr_inference  <->  sr/inference.py
   python -m dissc_tpu_torch.cli.eval          <->  eval.py
   python -m dissc_tpu_torch.cli.convert_eval  <->  scripts/convert_eval.py
+  python -m dissc_tpu_torch.cli.eval_sv       <->  eval_sv.py
+  python -m dissc_tpu_torch.cli.convert_eval_sv  <->  scripts/convert_eval_sv.py
 
 Each runs on the CUDA card unless ``--device cpu`` is given, and raises
 without a card (``preprocess`` and ``prep_dataset`` compute on the host

@@ -5,7 +5,8 @@
 
 ``--device`` (default: the CUDA card) picks where the models run;
 ``--device cpu`` runs them on the CPU.  ``--data_devices`` above 1 (a
-multi-card split) waits for the multi-GPU slice and raises.
+multi-card split) waits for the multi-GPU slice and raises; a negative
+count is a usage error (exit 2).
 """
 import argparse
 import os
@@ -15,9 +16,12 @@ from dissc_tpu_torch.device import resolve_device
 from dissc_tpu_torch.infer.prosody import infer_file
 
 
-def one_card(data_devices: int) -> None:
-    """``--data_devices`` 0 or 1 is the one card; a split over more cards
-    is not ported yet (ROADMAP Queue 1, slice I) and raises."""
+def one_card(parser: argparse.ArgumentParser, data_devices: int) -> None:
+    """``--data_devices`` 0 or 1 is the one card; a negative count is a
+    usage error (exit 2), as the JAX CLIs refuse it; a split over more
+    cards is not ported yet (ROADMAP Queue 1, slice I) and raises."""
+    if data_devices < 0:
+        parser.error(f"--data_devices must be 0 or more, got {data_devices}")
     if data_devices > 1:
         raise NotImplementedError(
             f"--data_devices {data_devices}: splitting batches over several cards comes "
@@ -63,12 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     assert args.pred_len | args.pred_pitch, \
         "Inference must at least convert pitch or rhythm (or both)"
     assert (args.wild_sample & args.pred_len & args.pred_pitch) | (not args.wild_sample), \
         "If we use an unknown speaker we must convert both pitch and rhythm"
-    one_card(args.data_devices)
+    one_card(parser, args.data_devices)
     device = resolve_device(args.device)  # refuse before touching a file
     seed_everything(args.seed)
     os.makedirs(args.out_path, exist_ok=True)

@@ -6,7 +6,8 @@
 The reference's 8-process GPU pool is replaced by batching on one card
 (:class:`~dissc_tpu_torch.infer.vocoder.VocoderEngine`).  ``--device``
 (default: the CUDA card) picks where the generator runs; ``--device cpu``
-runs it on the CPU.  ``--data_devices`` above 1 raises (multi-GPU slice).
+runs it on the CPU.  ``--data_devices`` above 1 raises (multi-GPU slice);
+a negative count is a usage error (exit 2).
 """
 import argparse
 from pathlib import Path
@@ -47,8 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> float:
     """Synthesise; returns the mean RTF."""
-    args = build_parser().parse_args(argv)
-    one_card(args.data_devices)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    one_card(parser, args.data_devices)
     device = resolve_device(args.device)  # refuse before touching a file
     seed_everything(52)
     rtf = run_inference(

@@ -5,9 +5,11 @@ torch layout), without importing it: each function takes a JAX tree as
 nested dicts of numpy arrays (as ``jax.device_get`` or a ``g_``/``do_``/
 ``best_model.pth`` checkpoint gives it) and returns a state dict of CPU
 float32 tensors keyed like the reference modules (``sr/models.py``,
-``model/len_predictor.py``, ``model/pitch_predictor.py``) or, for HuBERT
-and Whisper, like transformers' ``HubertModel`` and
-``WhisperForConditionalGeneration``: what the port's modules declare.
+``model/len_predictor.py``, ``model/pitch_predictor.py``, the jukebox
+``Encoder``/``Decoder`` and VQ ``Bottleneck`` of ``sr/modules``), like
+speechbrain's ECAPA-TDNN, or, for HuBERT and Whisper, like transformers'
+``HubertModel`` and ``WhisperForConditionalGeneration``: what the port's
+modules declare.
 
 Layouts: JAX ``Conv1d`` kernels are ``(k, in, out)``, ``ConvTranspose1d``
 ``(k, out, in)``, ``Conv2d`` ``(kh, kw, in, out)``; torch wants
@@ -15,7 +17,7 @@ Layouts: JAX ``Conv1d`` kernels are ``(k, in, out)``, ``ConvTranspose1d``
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,10 +54,85 @@ def _put(sd: StateDict, prefix: str, tensors: Mapping[str, torch.Tensor]) -> Non
         sd[f"{prefix}.{k}"] = v
 
 
-def generator_state_dict(params: Mapping[str, Any], h) -> StateDict:
-    """JAX ``CodeGenerator`` params (folded or not) -> port ``CodeGenerator``
-    state dict.  ``h`` is the matching ``VocoderConfig``."""
+def _get(tree: Mapping[str, Any], path: Tuple[str, ...]) -> Any:
+    for name in path:
+        tree = tree[name]
+    return tree
+
+
+def jukebox_layout(cfg: Mapping[str, Any], decoder: bool) -> List[Tuple[Tuple[str, ...], str]]:
+    """``(JAX path, port prefix)`` of every conv of a jukebox ``Encoder``
+    (or ``Decoder``) built from ``cfg``: the JAX names (``level_l``,
+    ``down_i``, ``res_i/block_d/conv{1,2}``, ``proj``, ``up_i``, ``out``)
+    against the reference's ``nn.Sequential`` indices, where a reversed
+    residual stack runs (and is numbered) deepest first."""
+    depth = cfg.get("depth", 4)
+    rev = decoder and cfg.get("reverse_decoder_dilation", False)
+    rows: List[Tuple[Tuple[str, ...], str]] = []
+
+    def res(jpath: Tuple[str, ...], prefix: str) -> None:
+        for d in range(depth):
+            j = depth - 1 - d if rev else d
+            rows.append((jpath + (f"block_{d}", "conv1"), f"{prefix}.model.{j}.model.1"))
+            rows.append((jpath + (f"block_{d}", "conv2"), f"{prefix}.model.{j}.model.3"))
+
+    for level in range(cfg["levels"]):
+        down_t, lvl, seq = cfg["downs_t"][level], (f"level_{level}",), f"level_blocks.{level}.model"
+        if decoder:
+            rows.append((lvl + ("proj",), f"{seq}.0"))
+            for i in range(down_t):
+                res(lvl + (f"res_{i}",), f"{seq}.{i + 1}.0")
+                rows.append((lvl + (f"up_{i}",), f"{seq}.{i + 1}.1"))
+        else:
+            for i in range(down_t):
+                rows.append((lvl + (f"down_{i}",), f"{seq}.{i}.0"))
+                res(lvl + (f"res_{i}",), f"{seq}.{i}.1")
+            rows.append((lvl + ("proj",), f"{seq}.{down_t}"))
+    if decoder:
+        rows.append((("out",), "out"))
+    return rows
+
+
+def _jukebox(sd: StateDict, prefix: str, tree: Mapping[str, Any], cfg, decoder: bool) -> None:
+    # Conv1d (k, in, out) and ConvTranspose1d (k, out, in) both reverse their axes
+    for path, name in jukebox_layout(cfg, decoder):
+        _put(sd, f"{prefix}.{name}", _conv(_get(tree, path), _CONV1D))
+
+
+def _vq_state(sd: StateDict, prefix: str, vq_state: Mapping[str, Any]) -> None:
+    """A JAX ``Bottleneck``'s ``vq_state`` (``level_l``: ``k``, ``k_sum``,
+    ``k_elem``, ``initted``) -> the port's buffers."""
+    for level in range(len(vq_state)):
+        st = vq_state[f"level_{level}"]
+        for name in ("k", "k_sum", "k_elem"):
+            sd[f"{prefix}.level_blocks.{level}.{name}"] = _t(st[name])
+        sd[f"{prefix}.level_blocks.{level}.initted"] = torch.tensor(bool(st["initted"]))
+
+
+def quantizer_state_dict(params: Mapping[str, Any], vq_state: Mapping[str, Any],
+                         quantizer_params: Mapping[str, Any]) -> StateDict:
+    """JAX ``Quantizer`` params and ``vq_state`` (what a quantizer ``g_``
+    holds under ``generator`` and ``vq_state``) -> port ``Quantizer`` state
+    dict; ``quantizer_params`` is the ``f0_*_params`` dict both were built
+    from."""
     sd: StateDict = {}
+    _jukebox(sd, "encoder", params["encoder"], quantizer_params["f0_encoder_params"], False)
+    _jukebox(sd, "decoder", params["decoder"], quantizer_params["f0_decoder_params"], True)
+    _vq_state(sd, "vq", vq_state["vq"])
+    return sd
+
+
+def generator_state_dict(params: Mapping[str, Any], h,
+                         vq_state: Optional[Mapping[str, Any]] = None) -> StateDict:
+    """JAX ``CodeGenerator`` params (folded or not) -> port ``CodeGenerator``
+    state dict.  ``h`` is the matching ``VocoderConfig``; a ``lambda_commit``
+    generator's ``f0_encoder`` comes from ``params`` and its codebook from
+    ``vq_state`` (the JAX model's ``vq_state`` collection)."""
+    sd: StateDict = {}
+    if "f0_encoder" in params:
+        _jukebox(sd, "f0_encoder", params["f0_encoder"], h.f0_encoder_params, False)
+    if vq_state is not None:
+        _vq_state(sd, "f0_vq", vq_state["f0_vq"])
     gen = params["generator"]
     _put(sd, "conv_pre", _conv(gen["conv_pre"], _CONV1D))
     _put(sd, "conv_post", _conv(gen["conv_post"], _CONV1D))
@@ -227,4 +304,52 @@ def whisper_state_dict(params: Mapping[str, Any], cfg) -> StateDict:
         lin(f"{p}.fc2", lp["fc2"], i)
         ln(f"{p}.final_layer_norm", lp["ffn_ln"], i)
     ln("model.decoder.layer_norm", dec["ln"])
+    return sd
+
+
+def ecapa_layout(scale: int) -> List[Tuple[Tuple[str, ...], str, str]]:
+    """``(JAX path, port prefix, kind)`` of every ECAPA layer: the JAX
+    ``EcapaTDNN`` names against speechbrain's (what the JAX
+    ``convert_speechbrain_state_dict`` reads); kind ``conv`` (a speechbrain
+    ``Conv1d``), ``bn`` (params and batch stats) or ``dense`` (the k1-conv
+    ``fc``).  ``scale`` is the Res2Net scale."""
+    rows: List[Tuple[Tuple[str, ...], str, str]] = []
+
+    def tdnn(jpath: Tuple[str, ...], prefix: str) -> None:
+        rows.append((jpath + ("conv",), f"{prefix}.conv.conv", "conv"))
+        rows.append((jpath + ("norm",), f"{prefix}.norm.norm", "bn"))
+
+    tdnn(("block_0",), "blocks.0")
+    for i in range(1, 4):
+        b, p = f"block_{i}", f"blocks.{i}"
+        tdnn((b, "tdnn1"), f"{p}.tdnn1")
+        for j in range(scale - 1):
+            tdnn((b, "res2net_block", f"block_{j}"), f"{p}.res2net_block.blocks.{j}")
+        tdnn((b, "tdnn2"), f"{p}.tdnn2")
+        for c in ("conv1", "conv2"):
+            rows.append(((b, "se_block", c), f"{p}.se_block.{c}.conv", "conv"))
+    tdnn(("mfa",), "mfa")
+    tdnn(("asp", "tdnn"), "asp.tdnn")
+    rows.append((("asp", "conv"), "asp.conv.conv", "conv"))
+    rows.append((("asp_bn",), "asp_bn", "bn"))
+    rows.append((("fc",), "fc.conv", "dense"))
+    return rows
+
+
+def ecapa_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -> StateDict:
+    """JAX ``EcapaTDNN`` ``params`` and ``batch_stats`` -> port ``EcapaTDNN``
+    state dict, the inverse of the JAX ``convert_speechbrain_state_dict``."""
+    sd: StateDict = {}
+    for path, prefix, kind in ecapa_layout(len(params["block_1"]["res2net_block"]) + 1):
+        tree = _get(params, path)
+        if kind == "bn":
+            stats = _get(batch_stats, path)
+            _put(sd, prefix, {"weight": _t(tree["scale"]), "bias": _t(tree["bias"]),
+                              "running_mean": _t(stats["mean"]),
+                              "running_var": _t(stats["var"])})
+        elif kind == "dense":
+            _put(sd, prefix, {"weight": _t(np.asarray(tree["kernel"]).T[:, :, None]),
+                              "bias": _t(tree["bias"])})
+        else:
+            _put(sd, prefix, _conv(tree, _CONV1D))
     return sd

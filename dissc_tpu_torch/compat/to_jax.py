@@ -4,8 +4,10 @@
 The trainers write their checkpoints through these functions, so a
 ``g_<08d>``, ``do_<08d>`` (the discriminators) or ``best_model.pth``
 written by the port has the JAX package's layout (and ``hubert_params``
-writes the HuBERT pickle ``cli.encode`` reads): nested dicts of numpy
-float32 arrays that either package loads.  Layouts: torch ``Conv1d``
+writes the HuBERT pickle ``cli.encode`` reads, ``ecapa_variables`` the
+ECAPA pickle ``cli.eval_sv --embedder`` reads, ``quantizer_trees`` an F0
+quantizer's ``g_``): nested dicts of numpy float32 arrays that either
+package loads.  Layouts: torch ``Conv1d``
 ``(out, in, k)`` -> JAX ``(k, in, out)``, ``ConvTranspose1d``
 ``(in, out, k)`` -> ``(k, out, in)``, ``Conv2d`` ``(out, in, kh, kw)`` ->
 ``(kh, kw, in, out)``; a weight-norm ``weight_g`` of C channels ->
@@ -17,6 +19,8 @@ from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from dissc_tpu_torch.compat.from_jax import ecapa_layout, jukebox_layout
 
 Tree = Dict[str, Any]
 
@@ -46,9 +50,46 @@ def _conv(sd: Mapping[str, torch.Tensor], prefix: str, perm) -> Tuple[Tree, Dict
     return tree, spectral
 
 
+def _set(tree: Tree, path: Tuple[str, ...], value: Any) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = value
+
+
+def _jukebox(sd: Mapping[str, torch.Tensor], prefix: str, cfg, decoder: bool) -> Tree:
+    tree: Tree = {}
+    for path, name in jukebox_layout(cfg, decoder):
+        _set(tree, path, _conv(sd, f"{prefix}.{name}", _CONV1D)[0])
+    return tree
+
+
+def vq_state_tree(sd: Mapping[str, torch.Tensor], prefix: str) -> Tree:
+    """A port ``Bottleneck``'s buffers under ``prefix`` -> the JAX
+    ``vq_state`` of that module (``level_l``: ``k``, ``k_sum``, ``k_elem``,
+    ``initted``)."""
+    levels = {k[len(prefix):].split(".")[2] for k in sd if k.startswith(f"{prefix}.level_blocks.")}
+    return {f"level_{level}": {
+        "k": _np(sd[f"{prefix}.level_blocks.{level}.k"]),
+        "k_sum": _np(sd[f"{prefix}.level_blocks.{level}.k_sum"]),
+        "k_elem": _np(sd[f"{prefix}.level_blocks.{level}.k_elem"]),
+        "initted": np.asarray(bool(sd[f"{prefix}.level_blocks.{level}.initted"]))}
+        for level in sorted(levels, key=int)}
+
+
+def quantizer_trees(sd: Mapping[str, torch.Tensor], quantizer_params: Mapping[str, Any]
+                    ) -> Tuple[Tree, Tree]:
+    """Port ``Quantizer`` state dict -> (JAX params, ``vq_state``): what a
+    quantizer ``g_`` holds under ``generator`` and ``vq_state``."""
+    params = {"encoder": _jukebox(sd, "encoder", quantizer_params["f0_encoder_params"], False),
+              "decoder": _jukebox(sd, "decoder", quantizer_params["f0_decoder_params"], True)}
+    return params, {"vq": vq_state_tree(sd, "vq")}
+
+
 def generator_tree(sd: Mapping[str, torch.Tensor], h) -> Tree:
     """Port ``CodeGenerator`` state dict -> the JAX ``CodeGenerator`` params
-    (what a ``g_`` checkpoint holds under ``"generator"``)."""
+    (what a ``g_`` checkpoint holds under ``"generator"``), with
+    ``f0_encoder`` for a ``lambda_commit`` generator (whose codebook
+    :func:`vq_state_tree` carries, prefix ``f0_vq``)."""
     gen: Tree = {"conv_pre": _conv(sd, "conv_pre", _CONV1D)[0],
                  "conv_post": _conv(sd, "conv_post", _CONV1D)[0]}
     for i in range(len(h.upsample_rates)):
@@ -61,6 +102,8 @@ def generator_tree(sd: Mapping[str, torch.Tensor], h) -> Tree:
     params: Tree = {"generator": gen, "dict": {"embedding": _np(sd["dict.weight"])}}
     if "spkr.weight" in sd:
         params["spkr"] = {"embedding": _np(sd["spkr.weight"])}
+    if h.lambda_commit:
+        params["f0_encoder"] = _jukebox(sd, "f0_encoder", h.f0_encoder_params, False)
     return params
 
 
@@ -172,3 +215,25 @@ def hubert_params(sd: Mapping[str, torch.Tensor], cfg) -> Tree:
         params[f"layer_{i}"] = layer
         i += 1
     return params
+
+
+def ecapa_variables(sd: Mapping[str, torch.Tensor]) -> Tuple[Tree, Tree]:
+    """Port ``EcapaTDNN`` state dict -> JAX ``(params, batch_stats)``: what
+    ``cli.eval_sv --embedder`` reads (the pickle the JAX
+    ``convert_speechbrain_state_dict`` output is saved as)."""
+    scale = 1 + len({k for k in sd if k.startswith("blocks.1.res2net_block.blocks.")
+                     and k.endswith(".conv.conv.weight")})
+    params: Tree = {}
+    stats: Tree = {}
+    for path, prefix, kind in ecapa_layout(scale):
+        if kind == "bn":
+            _set(params, path, {"scale": _np(sd[f"{prefix}.weight"]),
+                                "bias": _np(sd[f"{prefix}.bias"])})
+            _set(stats, path, {"mean": _np(sd[f"{prefix}.running_mean"]),
+                               "var": _np(sd[f"{prefix}.running_var"])})
+        elif kind == "dense":
+            _set(params, path, {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}.weight"])[:, :, 0].T),
+                                "bias": _np(sd[f"{prefix}.bias"])})
+        else:
+            _set(params, path, _conv(sd, prefix, _CONV1D)[0])
+    return params, stats

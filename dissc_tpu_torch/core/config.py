@@ -13,10 +13,13 @@ Knobs of the JAX package fall in three groups here:
   ``disc_s2d``, ``msd_fused_gstep``, ``dp_axis``): accepted and ignored;
   the port runs the plain formulation;
 * knobs that change the numbers: a ``compute_dtype``,
-  ``disc_compute_dtype`` or ``param_dtype`` other than float32, and the
-  VQ paths (``lambda_commit``, ``lambda_commit_code``), raise
+  ``disc_compute_dtype`` or ``param_dtype`` other than float32 raises
   ``NotImplementedError`` at construction (ROADMAP Queue 1, "bf16
-  compute options" and "VQ paths").
+  compute options");
+* the F0-VQ path: ``lambda_commit`` with ``f0_encoder_params`` and
+  ``f0_vq_params`` builds ``CodeGenerator``'s quantised-f0 branch;
+  ``lambda_commit_code`` raises ``NotImplementedError``, since the JAX
+  ``CodeGenerator`` has no code-VQ branch and ignores it.
 
 Reference behaviour mirrored on purpose: ``f0_feats`` is a dead field in
 the reference and in ``dissc_tpu`` alike; it is kept for the schema and
@@ -110,7 +113,8 @@ class VocoderConfig:
     test_base_path: str = ""
     num_workers: int = 4
 
-    # VQ options (reference sr/models.py:137-156): not ported, see __post_init__
+    # VQ options (reference sr/models.py:137-156): the f0 branch is built from
+    # lambda_commit; lambda_commit_code raises (see __post_init__)
     lambda_commit: Optional[float] = None
     f0_encoder_params: Optional[dict] = None
     f0_vq_params: Optional[dict] = None
@@ -142,11 +146,11 @@ class VocoderConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r}: the port computes in float32 "
                     "only (ROADMAP Queue 1: bf16 compute options)")
-        for name in ("lambda_commit", "lambda_commit_code"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"{name} is set: the VQ conditioning paths are not ported "
-                    "(ROADMAP Queue 1: VQ paths)")
+        if self.lambda_commit_code:
+            raise NotImplementedError(
+                "lambda_commit_code is set: the JAX CodeGenerator has no code-VQ branch "
+                "(it ignores the key), so the port has none either (ROADMAP: reference "
+                "behaviours)")
 
     @classmethod
     def from_json(cls, path: str) -> "VocoderConfig":

@@ -1,4 +1,5 @@
-"""Vocoder training/eval dataset (``dissc_tpu.data.code_dataset``; host numpy).
+"""Vocoder training/eval dataset and the F0 quantizer's dataset
+(``dissc_tpu.data.code_dataset``; host numpy).
 
 Reference ``sr/dataset.py:107-325`` (CodeDataset): per item it
   * loads a 16 kHz wav (int16 -> /32768 -> peak-normalize -> *0.95),
@@ -389,3 +390,86 @@ class CodeDataset:
             f0[~ii] = (f0[~ii] - mean) / std
         f0[ii] = (f0[ii] - mean) / std
         return f0
+
+
+class F0Dataset:
+    """F0 contours of random crops, for F0-VQVAE quantizer training
+    (``dissc_tpu.data.code_dataset.F0Dataset``; reference
+    ``sr/dataset.py:328-449``): the same ``random.Random(seed)`` crops, short
+    files tiled to ``segment_size``, YAAPT's 5 ms f0 per crop (on
+    ``f0_device``), and optional whitening by stats keyed by speaker *id*
+    with ``f0_mean`` / ``f0_std`` (unvoiced frames first filled with the
+    voiced median when ``f0_median``).
+
+    As in :class:`CodeDataset`, the tracker's failures are not caught: the
+    dataset decides from its sampling rate whether YAAPT's band-pass can
+    be built (zeros, one per 80 samples, where it cannot), and every other
+    error propagates; the JAX package catches every exception and returns
+    zeros."""
+
+    def __init__(self, files, segment_size, sampling_rate, multispkr="_",
+                 f0_stats=None, f0_normalize=False, f0_median=False,
+                 f0_interp=False, pad=None, seed=1234, f0_device: DeviceLike = None):
+        self.audio_files = files[0] if isinstance(files, tuple) else files
+        self.segment_size = segment_size
+        self.sampling_rate = sampling_rate
+        self.multispkr = multispkr
+        self.f0_stats = f0_stats
+        self.f0_normalize = f0_normalize
+        self.f0_median = f0_median
+        self.f0_interp = f0_interp
+        self.pad = pad
+        self.f0_device = f0_device
+        self._rng = random.Random(seed)
+        self._yaapt_takes_rate = sampling_rate / 2 > yaapt.BAND_HZ[1]
+        if self.multispkr:
+            spkrs = sorted({parse_speaker(f, self.multispkr) for f in self.audio_files})
+            self.id_to_spkr = spkrs
+            self.spkr_to_id = {k: v for v, k in enumerate(spkrs)}
+
+    def __len__(self) -> int:
+        return len(self.audio_files)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        filename = self.audio_files[index]
+        audio, sr = read_wav(str(filename), dtype="int16")
+        if self.pad:
+            audio = np.pad(audio, (0, self.pad - audio.shape[-1] % self.pad), "constant")
+        if sr != self.sampling_rate:
+            raise ValueError(f"{sr} SR doesn't match target {self.sampling_rate} SR")
+        audio = normalize_audio_int16(audio)
+
+        while audio.shape[0] < self.segment_size:
+            audio = np.hstack([audio, audio])
+        start = self._rng.randint(0, max(audio.shape[0] - self.segment_size, 0))
+        audio = audio[start: start + self.segment_size].astype(np.float32)
+
+        if self._yaapt_takes_rate:
+            f0 = yaapt.yaapt_f0(audio, self.sampling_rate, interp=self.f0_interp,
+                                device=self.f0_device)
+        else:
+            f0 = np.zeros(audio.shape[0] // 80, np.float32)
+        feats: Dict[str, np.ndarray] = {"f0": f0.reshape(-1, 1).astype(np.float32)}
+
+        if self.multispkr:
+            spkr_id = self.spkr_to_id[parse_speaker(filename, self.multispkr)]
+            feats["spkr"] = np.array([spkr_id], np.int32)
+
+        if self.f0_normalize:
+            sid = int(feats["spkr"][0]) if self.multispkr else 0
+            if self.f0_stats is None or sid not in self.f0_stats:
+                mean = self.f0_stats["f0_mean"] if self.f0_stats else 0.0
+                std = self.f0_stats["f0_std"] if self.f0_stats else 1.0
+            else:
+                mean = self.f0_stats[sid]["f0_mean"]
+                std = self.f0_stats[sid]["f0_std"]
+            f0 = feats["f0"]
+            ii = f0 != 0
+            if self.f0_median and ii.any():
+                f0[~ii] = np.median(f0[ii])
+                f0[~ii] = (f0[~ii] - mean) / std
+            f0[ii] = (f0[ii] - mean) / std
+
+        feats["audio"] = audio
+        feats["filename"] = str(filename)
+        return feats

@@ -19,7 +19,7 @@ import os
 import pickle
 from collections import defaultdict
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -57,14 +57,22 @@ def save_f0_stats(path: str, stats: Dict) -> None:
         pickle.dump(stats, f)
 
 
-def read_pair_csv(path: str) -> Dict[str, set]:
-    """The speaker-verification pair CSV -> ``{syn_sample: {syn_trgt, ...}}``
-    (the JAX package reads it with pandas, ``index_col=0``; only these two
-    columns are used)."""
-    pairs: Dict[str, set] = {}
+def read_sv_pairs(path: str) -> List[Dict[str, str]]:
+    """The speaker-verification pair CSV's rows as dicts of ``ref``,
+    ``syn_trgt``, ``syn_sample`` and ``label``.  The first column is an
+    index and is dropped (the JAX package reads the file with pandas,
+    ``index_col=0``; ``to_csv`` writes that column unnamed)."""
     with open(path, newline="") as f:
-        for row in csv.DictReader(f):
-            pairs.setdefault(row["syn_sample"], set()).add(row["syn_trgt"])
+        reader = csv.reader(f)
+        header = next(reader)[1:]
+        return [dict(zip(header, row[1:])) for row in reader]
+
+
+def read_pair_csv(path: str) -> Dict[str, set]:
+    """The speaker-verification pair CSV -> ``{syn_sample: {syn_trgt, ...}}``."""
+    pairs: Dict[str, set] = {}
+    for row in read_sv_pairs(path):
+        pairs.setdefault(row["syn_sample"], set()).add(row["syn_trgt"])
     return pairs
 
 

@@ -41,7 +41,7 @@ from dissc_tpu_torch.data.code_dataset import CodeDataset, parse_manifest
 from dissc_tpu_torch.data.stats import load_f0_stats, read_pair_csv
 from dissc_tpu_torch.device import DeviceLike, resolve_device
 from dissc_tpu_torch.infer.streaming import StreamingVocoder
-from dissc_tpu_torch.models.hifigan import CodeGenerator
+from dissc_tpu_torch.models.hifigan import CodeGenerator, refuse_f0_vq
 from dissc_tpu_torch.models.layers import fold_weight_norm
 from dissc_tpu_torch.train.checkpoints import load_checkpoint, scan_checkpoint
 
@@ -65,6 +65,7 @@ class VocoderEngine:
                  frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
                  stream_chunk: int = 512, exact_lengths: bool = False,
                  device: DeviceLike = None):
+        refuse_f0_vq(h, "VocoderEngine")
         self.device = resolve_device(device)
         if not h.folded_weights:
             gen_state = fold_weight_norm(gen_state)

@@ -12,9 +12,13 @@ layout (``code [B, T]``, ``f0 [B, Tf, 1]``, ``spkr [B, 1]``) and returns
 The JAX package's space-to-channel packed MRF and waveform head are TPU
 layouts with the same numbers; the port runs the plain MRF.
 
-Reference behaviour mirrored on purpose: the VQ conditioning paths
-(``lambda_commit*``) are not supported (the config raises), and the
-vocoder trainer has no VQ commit loss, in the reference as here.
+With ``lambda_commit`` set, ``CodeGenerator`` quantises its f0 through a
+jukebox ``Encoder`` (``f0_encoder``) and an EMA ``Bottleneck`` (``f0_vq``)
+and returns ``(wav, commit_losses, metrics)``, as the JAX package does
+(``dissc_tpu/models/hifigan.py:264-305``).  Reference behaviours mirrored
+on purpose: the branch updates the codebook on every forward
+(``update_k=True``, at inference too), and the vocoder trainer has no VQ
+commit loss; ``GANTrainer`` and ``VocoderEngine`` refuse such a config.
 """
 from __future__ import annotations
 
@@ -25,8 +29,22 @@ import torch.nn as nn
 
 from dissc_tpu_torch.core.config import VocoderConfig
 from dissc_tpu_torch.core.seqops import nearest_upsample
+from dissc_tpu_torch.models.jukebox import Encoder
 from dissc_tpu_torch.models.layers import (Conv1d, ConvTranspose1d, Embed, hifigan_init,
                                            leaky_relu)
+from dissc_tpu_torch.models.vq import Bottleneck
+
+
+def refuse_f0_vq(h: VocoderConfig, who: str) -> None:
+    """Raise for a ``lambda_commit`` config: its ``CodeGenerator`` returns
+    ``(wav, commit_losses, metrics)``, which neither the vocoder trainer nor
+    the serving engine takes, in the JAX package (it fails on the tuple)
+    or in the reference (no VQ commit loss in ``sr/train.py``)."""
+    if h.lambda_commit:
+        raise NotImplementedError(
+            f"{who} takes the LUT generator only: lambda_commit={h.lambda_commit} builds the "
+            "F0-VQ branch, which returns (wav, commit_losses, metrics) and has no commit "
+            "loss in the trainer (ROADMAP: deliberate differences)")
 
 
 class ResBlock1(nn.Module):
@@ -113,13 +131,18 @@ class CodeGenerator(Generator):
     Unit LUT embedding (+ per-frame F0 channel, nearest-upsampled to the
     finer rate, + speaker embedding broadcast over time) ->
     ``[B, T', model_in_dim]`` -> Generator.  The speaker table holds 200
-    rows, the reference's fixed capacity (``sr/models.py:133``).
+    rows, the reference's fixed capacity (``sr/models.py:133``).  With
+    ``lambda_commit``, the f0 goes through ``f0_encoder`` and ``f0_vq``
+    first, and the first level's quantised map takes its place.
     """
 
     def __init__(self, h: VocoderConfig, generator: Optional[torch.Generator] = None):
         super().__init__(h, generator)
         self.dict = Embed(h.num_embeddings, h.embedding_dim, generator=generator)
         self.spkr = Embed(200, h.embedding_dim, generator=generator) if h.multispkr else None
+        if h.lambda_commit:
+            self.f0_encoder = Encoder(**h.f0_encoder_params, generator=generator)
+            self.f0_vq = Bottleneck(**h.f0_vq_params)
 
     def assemble(self, code: torch.Tensor, f0: Optional[torch.Tensor] = None,
                  spkr: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -140,5 +163,15 @@ class CodeGenerator(Generator):
         return x
 
     def forward(self, code: torch.Tensor, f0: Optional[torch.Tensor] = None,
-                spkr: Optional[torch.Tensor] = None) -> torch.Tensor:
+                spkr: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """The waveform; with ``lambda_commit``, ``(wav, commit_losses,
+        metrics)``, the codebook updated from this batch (restart draws from
+        ``generator``)."""
+        if self.h.lambda_commit:
+            f0_h = self.f0_encoder(f0.transpose(1, 2))
+            _, f0_q, commit_losses, metrics = self.f0_vq(f0_h, update_k=True,
+                                                         generator=generator)
+            x = self.assemble(code, f0_q[0].transpose(1, 2), spkr)
+            return super().forward(x.transpose(1, 2)), commit_losses, metrics
         return super().forward(self.assemble(code, f0, spkr).transpose(1, 2))

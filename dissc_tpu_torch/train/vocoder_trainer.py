@@ -65,7 +65,7 @@ from dissc_tpu_torch.kernels.mel_kernel import mel_spectrogram_grad
 from dissc_tpu_torch.losses.gan import discriminator_loss, feature_loss, generator_loss
 from dissc_tpu_torch.models.discriminators import (MultiPeriodDiscriminator,
                                                    MultiScaleDiscriminator)
-from dissc_tpu_torch.models.hifigan import CodeGenerator
+from dissc_tpu_torch.models.hifigan import CodeGenerator, refuse_f0_vq
 from dissc_tpu_torch.train.checkpoints import (load_checkpoint, save_checkpoint,
                                                scan_checkpoint, step_checkpoint_name)
 from dissc_tpu_torch.train.logging import MetricLogger
@@ -134,6 +134,7 @@ class GANTrainer:
 
     def __init__(self, h: VocoderConfig, device: DeviceLike = None,
                  seed: Optional[int] = None, steps_per_epoch: Optional[int] = None):
+        refuse_f0_vq(h, "GANTrainer")
         self.h = h
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
@@ -330,6 +331,7 @@ def train_vocoder(
     there, so at 1 these are step times); ``prefetch_wait_s``, the loop's
     wait on the prefetch queue; ``checkpoint_s`` (each ``g_``/``do_``
     write); ``validation_s``; ``wall_s``, the epoch loop."""
+    refuse_f0_vq(h, "train_vocoder")
     dev = resolve_device(device)
     os.makedirs(checkpoint_path, exist_ok=True)
 

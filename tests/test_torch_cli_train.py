@@ -29,7 +29,7 @@ def _flags(path: Path) -> set:
 
 
 PORTED_CLIS = ["preprocess", "encode", "prep_dataset", "train_len", "train_f0", "infer",
-               "sr_train", "sr_inference", "eval", "convert_eval"]
+               "sr_train", "sr_inference", "eval", "convert_eval", "eval_sv", "convert_eval_sv"]
 
 
 @pytest.mark.parametrize("name", PORTED_CLIS)

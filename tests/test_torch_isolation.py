@@ -31,7 +31,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package(tmp_path):
                  "cli.train_f0", "cli.preprocess", "cli.encode", "cli.prep_dataset", "cli.infer",
                  "cli.sr_inference", "cli.eval", "cli.convert_eval", "eval.textgrid",
                  "eval.align", "eval.metrics", "eval.asr", "models.whisper",
-                 "models.whisper_files"):
+                 "models.whisper_files", "models.ecapa", "models.jukebox", "models.vq",
+                 "models.kmeans", "eval.sv", "cli.eval_sv", "cli.convert_eval_sv",
+                 "train.quantizer_trainer", "compat.torch_import", "compat.from_jax"):
         assert f"dissc_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -121,7 +123,8 @@ def test_training_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatc
 
 
 @pytest.mark.parametrize("name", ["preprocess", "prep_dataset", "encode", "infer",
-                                  "sr_inference", "eval", "convert_eval"])
+                                  "sr_inference", "eval", "convert_eval", "eval_sv",
+                                  "convert_eval_sv"])
 def test_conversion_and_eval_clis_raise_without_cuda_unless_cpu_is_asked(name, monkeypatch,
                                                                           tmp_path):
     import importlib
@@ -137,7 +140,9 @@ def test_conversion_and_eval_clis_raise_without_cuda_unless_cpu_is_asked(name, m
             "infer": ["--input_path", missing, "--out_path", out, "--pred_len"],
             "sr_inference": ["--checkpoint_file", missing, "--output_dir", out],
             "eval": ["--base_path", missing, "--method", "m"],
-            "convert_eval": []}[name]
+            "convert_eval": [],
+            "eval_sv": ["--base_path", missing, "--speechbrain_ckpt", missing],
+            "convert_eval_sv": []}[name]
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(argv)
     assert not os.path.exists(out)  # refused before it wrote anything
@@ -149,6 +154,18 @@ def test_conversion_and_eval_clis_raise_without_cuda_unless_cpu_is_asked(name, m
     if name in ("infer", "sr_inference"):
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             cli.main(argv + ["--data_devices", "2", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", ["infer", "sr_inference"])
+def test_a_negative_data_devices_is_a_usage_error(name, capsys):
+    import importlib
+
+    cli = importlib.import_module(f"dissc_tpu_torch.cli.{name}")
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main(["--pred_len", "--data_devices", "-1", "--device", "cpu"] if name == "infer"
+                 else ["--data_devices", "-1", "--device", "cpu"])
+    assert exit_info.value.code == 2
+    assert "--data_devices must be 0 or more, got -1" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("binding", ["native_loader", "flac_native"])
@@ -174,7 +191,6 @@ def test_native_binding_raises_when_its_build_fails(binding, monkeypatch, tmp_pa
 @pytest.mark.parametrize("knob", [dict(compute_dtype="bfloat16"),
                                   dict(disc_compute_dtype="bfloat16"),
                                   dict(param_dtype="bfloat16"),
-                                  dict(lambda_commit=0.02),
                                   dict(lambda_commit_code=0.02)])
 def test_config_refuses_knobs_that_change_the_numbers(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
