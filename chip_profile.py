@@ -111,6 +111,36 @@ def k1_report(dev: torch.device, n: int = 20) -> None:
                           "kernel_us_max": max(us)}), flush=True)
 
 
+def k1_records_probe(dev: torch.device, repeats: int = 3, n: int = 20) -> None:
+    """How many of ``n`` K1 launches ``torch.profiler`` keeps at each of
+    ``chip_smoke.kernel_cases()``, ``repeats`` windows each, with the window
+    closed right after the synchronize (as ``own_kernel_us`` closed it) and
+    closed after a 0.2 s wait, and with a fresh ``y`` (first calls of a
+    config) or a warm one."""
+    g = torch.Generator().manual_seed(0)
+    for hc, b, t in kernel_cases():
+        args = mel_args(hc)
+        y = (torch.randn((b, t), generator=g) * 0.3).to(dev)
+        kern = lambda: mel_kernel.mel_spectrogram_kernel(y, *args)  # noqa: E731
+        counts = {}
+        for settle_s in (0.0, 0.2):
+            kept = []
+            for _ in range(repeats):
+                for _ in range(3):
+                    kern()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        kern()
+                    torch.cuda.synchronize()
+                    time.sleep(settle_s)
+                kept.append(sum("log_mel_fft_kernel" in e.name()
+                                for e in prof.profiler.kineto_results.events()))
+            counts[f"settle_{settle_s}s"] = kept
+        print(json.dumps({"window": "K1 records", "shape": [b, t], "n_fft": hc.n_fft,
+                          "launches": n, "records": counts}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)

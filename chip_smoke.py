@@ -79,7 +79,25 @@ HuBERT-base, with weights drawn from a fixed seed:
    (4,096 x 768), timed; every step of a recorded card run redone on the
    CPU from the card's state, and the final assignment: a label that flips
    is reported with its tie's gap, which must lie within f32's rounding of
-   the distance expansion, and the centroids no flip touched within 1e-4.
+   the distance expansion, and the centroids no flip touched within 1e-4;
+10. data parallel, through ``parallel/dryrun.py`` as commands (their ranks
+   spawn from them) and the CLIs, with the launch counters set to 0 just
+   before and read just after (the ranks count their own): (a) the GAN step
+   at ``VocoderConfig()`` width, global batch 64, 3 SGD steps (lr 1e-3),
+   cuDNN's deterministic algorithms, through ``init_process_group("nccl")``
+   and DDP at W = 1, held to the plain ``GANTrainer`` step within 1e-7; (b)
+   the same at W = 2 over gloo, both ranks on the one card, 32 rows each,
+   parameters within 2e-5 of (a) and losses within rtol 1e-4, with each
+   rank's ms a step, its all-reduce's share and peak GiB; (c) one
+   ``LenPredictor``, ``PitchPredictor`` and ``PitchPredictorBase`` step
+   (masking off and on, synced BatchNorm) and a ``BottleneckBlock`` update
+   and ``Quantizer`` step with a restart at W = 2 gloo, each within 2e-5
+   of one process; (d) ``VocoderEngine`` and ``ConversionPipeline`` split
+   over the card twice against one device (9 utterances of 77-2600 frames,
+   one streamed; 9 records), within 1e-4 and in order; (e) ``cli.sr_train``
+   with its own launcher (W = the cards that divide the batch) for 2 steps,
+   then resumed to 4, rank 0's ``g_``/``do_`` served; (f) where there are
+   several cards, (a) at W = the card count; else it says it skipped.
 
 It exits non-zero on any failure and without a card.  The line before
 the last is the ``kernels`` JSON object; the last line is
@@ -125,6 +143,7 @@ from dissc_tpu_torch.infer.vocoder import VocoderEngine
 from dissc_tpu_torch.kernels import mel_kernel
 from dissc_tpu_torch.models.hubert import HubertConfig, SpeechUnitEncoder, init_state_dict
 from dissc_tpu_torch.models.prosody import LenPredictor
+from dissc_tpu_torch.parallel.mesh import world_for_batch
 from dissc_tpu_torch.pipeline import ConversionPipeline
 from dissc_tpu_torch.train import prosody_trainer, vocoder_trainer
 from dissc_tpu_torch.train.checkpoints import load_checkpoint
@@ -157,21 +176,32 @@ def sync_time_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+WINDOW_SETTLE_S = 0.05  # profiler window margin around the timed launches
+
+
 def own_kernel_us(fn, match: str = "log_mel_fft_kernel", n: int = 20) -> list:
     """The device time of each launch of the kernel named ``match`` over
     ``n`` calls of ``fn`` (``torch.profiler``'s kernel durations, after 3
     warm-up calls): the kernel alone, without the host's time to launch it.
 
-    CUPTI may drop an activity record (one H100 run kept 19 of 20), so the
-    list holds the records it kept: at least half of ``n``, and never more
-    than ``n`` (more would mean ``match`` names another kernel too)."""
+    CUPTI may drop an activity record (one H100 run kept 19 of 20, another 3
+    of 20 at n_fft 4095), so the list holds the records it kept: at least
+    half of ``n``, and never more than ``n`` (more would mean ``match`` names
+    another kernel too).  The window stays open ``WINDOW_SETTLE_S`` before
+    the first launch and after the last kernel ends: the profiler keeps only
+    activity inside its window, timed on the device's clock against the
+    host's, and reads CUPTI's buffers at its close, so a kernel that ends
+    right at the close (the 109 us ones at n_fft 4095 end last) is the one
+    at risk."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_SETTLE_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        time.sleep(WINDOW_SETTLE_S)
     us = [e.duration_ns() / 1e3 for e in prof.profiler.kineto_results.events()
           if match in e.name()]
     if not n // 2 <= len(us) <= n or min(us) <= 0:
@@ -402,7 +432,7 @@ def serve_phase(h: VocoderConfig, trainer: GANTrainer, dev: torch.device) -> Non
     for n, w in zip(lengths, wavs):
         check(w.shape == (n * h.code_hop_size,), f"length of a {n}-frame request")
         check(bool(np.isfinite(w).all()), "finite audio")
-    check(engine._streamer is not None, "the 2600-frame request streamed")
+    check(bool(engine._streamers), "the 2600-frame request streamed")
     print(f"serve: {len(items)} requests, {audio_s:.2f} s of audio in {wall:.3f} s, "
           f"RTF {wall / audio_s:.6f} (engine mean per call {mean_rtf:.6f})", flush=True)
 
@@ -2088,6 +2118,301 @@ def f0_vq_phase(h: VocoderConfig, dev: torch.device) -> None:
           f"{km['centroid_max_abs_err']}")
 
 
+# ---------------------------------------------------------------------------
+# 10. data parallel: DDP over NCCL and gloo, the serving split, the CLI's ranks
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3  # SGD steps (lr 1e-3) of each GAN run
+DP_PROSODY_BATCH = 32  # the prosody and quantizer steps' global batch
+# (b) after DP_STEPS: the limit on W = 2 vs W = 1 is this many times the
+# spread of two W = 1 runs (cuDNN's deterministic and heuristic algorithms),
+# which varied 5.0e-5 to 2.2e-4 over four runs on an H100 while W = 2 vs 1
+# read 1.16e-4 in each (``PERF.md``)
+DP_SPREAD_FACTOR = 8.0
+DP_ARGS = ["--device", "cuda", "--width", "full", "--batch", "64", "--steps", str(DP_STEPS),
+           "--step-batch", str(DP_PROSODY_BATCH), "--deterministic", "--dtype", "float64"]
+
+
+def dryrun(out: str, *args: str) -> tuple:
+    """``python -m dissc_tpu_torch.parallel.dryrun`` as a command (its ranks
+    spawn from it, never from this script); its lines echoed; returns (rank
+    0's arrays, the command's wall s).  Fails on a non-zero exit."""
+    cmd = [sys.executable, "-m", "dissc_tpu_torch.parallel.dryrun", *args, "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print("  |", line[:400], flush=True)
+    if proc.returncode:
+        print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+        raise RuntimeError(f"dryrun {' '.join(args)} exited {proc.returncode}")
+    with np.load(out) as f:
+        return dict(f), wall
+
+
+def diffs(a: dict, b: dict, prefix: str) -> list:
+    """(largest absolute difference, key, largest magnitude) of each ``prefix``
+    array both runs hold, largest difference first."""
+    keys = [k for k in a if k.startswith(prefix)]
+    check(keys and all(k in b for k in keys), f"the runs both hold {prefix}*")
+    return sorted(((float(np.abs(a[k].astype(np.float64) - b[k]).max()), k,
+                    float(np.abs(b[k]).max())) for k in keys), reverse=True)
+
+
+def worst_diff(a: dict, b: dict, prefix: str) -> tuple:
+    """(largest absolute difference over the ``prefix`` arrays of both, its key)."""
+    return diffs(a, b, prefix)[0][:2]
+
+
+def gan_row(run: dict, wall: float) -> dict:
+    """ms a step (steps 2+: the first warms cuDNN up), the all-reduce's share
+    of them, peak GiB and K1 launches, a rank each."""
+    ms, comm = run["gan/ms_per_step"], run["gan/allreduce_ms"]
+    return {"ms_per_step": ms.tolist(), "ms_per_step_2_plus_mean": float(ms[:, 1:].mean()),
+            "allreduce_ms": comm.tolist(),
+            "allreduce_share_2_plus": float(comm[:, 1:].sum() / ms[:, 1:].sum()),
+            "peak_gib": run["gan/peak_gib"].tolist(),
+            "k1_launches": run["gan/k1_launches"].tolist(), "command_wall_s": wall}
+
+
+def data_parallel_steps(root: str) -> dict:
+    """(a)-(c) and (f): the GAN step at full width, global batch 64, plain,
+    NCCL W = 1 and gloo W = 2 on the one card; the prosody and quantizer
+    steps at W = 2 against one process; NCCL over every card where there
+    are several.
+
+    The GAN runs use cuDNN's deterministic algorithms, so (a) can be held
+    bit for bit.  Batch halves change the sums' order, and the GAN step
+    amplifies that rounding from step to step (on an H100, two runs of the
+    plain step at W = 1 on cuDNN's heuristic algorithms part by ~1e-4 after
+    3 steps; ``PERF.md``), so (b) holds step 1 to 2e-5 and step 3 to
+    ``DP_SPREAD_FACTOR`` times the spread this run measures between the
+    plain step and its repeat on heuristic algorithms (``--control``).  (c)
+    runs in float64, where the ranks' arithmetic is exact to ~1e-15: in
+    float32 an activation within rounding of a LeakyReLU's kink flips a
+    whole element's gradient (2.9e-5 in one of six steps on the CPU)."""
+    common = DP_ARGS
+    plain, plain_s = dryrun(f"{root}/plain.npz", "--phase", "gan", "prosody", "vq", "--world",
+                            "1", "--backend", "none", "--control", *common)
+    nccl, nccl_s = dryrun(f"{root}/nccl1.npz", "--phase", "gan", "--world", "1", "--backend",
+                          "nccl", *common)
+    gloo, gloo_s = dryrun(f"{root}/gloo2.npz", "--phase", "gan", "prosody", "vq", "--world",
+                          "2", "--backend", "gloo", *common)
+    smi = card_name()
+    a_err, a_key = worst_diff(nccl, plain, "gan/final/")
+    a_bits = all(np.array_equal(nccl[k], plain[k]) for k in nccl if k.startswith("gan/final/"))
+    row_a = dict(gan_row(nccl, nccl_s), card=smi, world=1, backend="nccl",
+                 params_max_abs_err_vs_plain=a_err, worst=a_key, bit_equal=a_bits,
+                 losses=nccl["gan/losses"].tolist(), plain=gan_row(plain, plain_s))
+    print("data parallel (a) NCCL W=1", json.dumps(row_a), flush=True)
+    check(a_err <= 1e-7, f"NCCL W=1 vs the plain step: {a_err} at {a_key}")
+    check(nccl["gan/k1_launches"].tolist() == [2 * DP_STEPS],
+          f"K1 launches at NCCL W=1: {nccl['gan/k1_launches'].tolist()}")
+
+    b1_err, b1_key = worst_diff(gloo, nccl, "gan/step1/")
+    b_top = diffs(gloo, nccl, "gan/final/")
+    b_err, b_key = b_top[0][:2]
+    spread, spread_key, limit = spread_limit(plain)
+    loss_rel = float(np.max(np.abs(gloo["gan/losses"] - nccl["gan/losses"])
+                            / np.abs(nccl["gan/losses"])))
+    row_b = dict(gan_row(gloo, gloo_s), card=smi, world=2, backend="gloo",
+                 params_max_abs_err_vs_a_step_1=b1_err, worst_step_1=b1_key,
+                 params_max_abs_err_vs_a=b_err, worst=b_key, largest_five=b_top[:5],
+                 plain_spread_heuristic_vs_deterministic=spread, spread_worst=spread_key,
+                 limit_after_steps=limit, losses_max_rel_err_vs_a=loss_rel)
+    print("data parallel (b) gloo W=2 on one card", json.dumps(row_b), flush=True)
+    check(b1_err <= 2e-5, f"gloo W=2 vs (a) after step 1: {b1_err} at {b1_key}")
+    check(b_err <= limit, f"gloo W=2 vs (a) after {DP_STEPS} steps: {b_err} at {b_key}, "
+                          f"limit {limit} ({DP_SPREAD_FACTOR} x the plain spread {spread})")
+    check(loss_rel <= 1e-4, f"gloo W=2 losses vs (a): relative {loss_rel}")
+    check(gloo["gan/k1_launches"].tolist() == [2 * DP_STEPS] * 2,
+          f"K1 launches at gloo W=2: {gloo['gan/k1_launches'].tolist()}")
+
+    row_c = {"card": smi, "world": 2, "backend": "gloo", "batch": DP_PROSODY_BATCH}
+    for prefix in [f"prosody/{v}/{m}/final/" for v in ("plain", "masked")
+                   for m in ("len", "new", "base")] + ["vq/block/final/", "vq/quantizer/final/"]:
+        err, key = worst_diff(gloo, plain, prefix)
+        row_c[prefix.rstrip("/")] = {"max_abs_err_vs_w1": err, "worst": key}
+        check(err <= 2e-5, f"{prefix} W=2 vs W=1: {err} at {key}")
+    k_elem = gloo["vq/quantizer/final/vq.level_blocks.0.k_elem"]
+    check(float(gloo["vq/quantizer/usage"]) < len(k_elem), "a code of the quantizer restarted")
+    print("data parallel (c) prosody and VQ", json.dumps(row_c), flush=True)
+
+    launches = int(nccl["gan/k1_launches"].sum() + gloo["gan/k1_launches"].sum()
+                   + plain["gan/k1_launches"].sum())
+    return {"k1_launches": launches + nccl_over_cards(root, nccl, limit, smi)}
+
+
+def spread_limit(plain: dict) -> tuple:
+    """(the plain step's spread after ``DP_STEPS``: its parameters against
+    its repeat on cuDNN's heuristic algorithms, the key, the limit it sets
+    for another world's parameters)."""
+    control = {"gan/" + k[len("gan/control/"):]: v for k, v in plain.items()
+               if k.startswith("gan/control/final/")}
+    spread, key = worst_diff(control, plain, "gan/final/")
+    return spread, key, max(2e-5, DP_SPREAD_FACTOR * spread)
+
+
+def nccl_over_cards(root: str, nccl: dict, limit: float, smi: str) -> int:
+    """(f): the GAN run of (a) over NCCL at W = every card, where there are
+    several, held to (a) as (b) is; returns its K1 launches (0 when there
+    is one card)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("data parallel (f) skipped: NCCL over several cards needs more than the "
+              f"{cards} card this machine has (torch.cuda.device_count() == {cards})",
+              flush=True)
+        return 0
+    many, many_s = dryrun(f"{root}/nccl{cards}.npz", "--phase", "gan", "--world", str(cards),
+                          "--backend", "nccl", *DP_ARGS)
+    f1_err, f1_key = worst_diff(many, nccl, "gan/step1/")
+    f_err, f_key = worst_diff(many, nccl, "gan/final/")
+    loss_rel = float(np.max(np.abs(many["gan/losses"] - nccl["gan/losses"])
+                            / np.abs(nccl["gan/losses"])))
+    print(f"data parallel (f) NCCL W={cards}", json.dumps(dict(
+        gan_row(many, many_s), card=smi, world=cards, backend="nccl",
+        params_max_abs_err_vs_a_step_1=f1_err, worst_step_1=f1_key,
+        params_max_abs_err_vs_a=f_err, worst=f_key, limit_after_steps=limit,
+        losses_max_rel_err_vs_a=loss_rel)), flush=True)
+    check(f1_err <= 2e-5, f"NCCL W={cards} vs (a) after step 1: {f1_err} at {f1_key}")
+    check(f_err <= limit, f"NCCL W={cards} vs (a): {f_err} at {f_key}, limit {limit}")
+    check(loss_rel <= 1e-4, f"NCCL W={cards} losses vs (a): relative {loss_rel}")
+    check(many["gan/k1_launches"].tolist() == [2 * DP_STEPS] * cards,
+          f"K1 launches at NCCL W={cards}: {many['gan/k1_launches'].tolist()}")
+    return int(many["gan/k1_launches"].sum())
+
+
+def write_serving_tree(root: str, h: VocoderConfig, gen_state: dict) -> dict:
+    """A vocoder checkpoint dir (``config.json`` + ``g_``) from ``gen_state``,
+    rhythm and "new" pitch checkpoints from seeds and a 107-speaker
+    ``id_to_spkr.pkl``: what ``ConversionPipeline.load`` reads."""
+    from dissc_tpu_torch.compat import to_jax
+    from dissc_tpu_torch.train.checkpoints import save_checkpoint
+
+    g = torch.Generator().manual_seed(24)
+    save_checkpoint(f"{root}/vocoder/g_00000000", {"generator": to_jax.generator_tree(
+        {k: v.cpu() for k, v in gen_state.items()}, h)})
+    with open(f"{root}/vocoder/config.json", "w") as f:
+        json.dump(h.to_dict(), f)
+    save_checkpoint(f"{root}/len/best_model.pth", to_jax.len_predictor_variables(
+        LenPredictor(100, N_SPEAKERS, generator=g).state_dict()))
+    save_checkpoint(f"{root}/len/len_norm_stats.pth", BENCH_LEN_STATS)
+    save_checkpoint(f"{root}/pitch/best_model.pth", to_jax.pitch_predictor_variables(
+        build_pitch_model("new", 100, N_SPEAKERS, generator=g).state_dict()))
+    names = [f"s{i:03d}" for i in range(N_SPEAKERS)]
+    with open(f"{root}/id_to_spkr.pkl", "wb") as f:
+        pickle.dump(names, f)
+    return dict(vocoder_ckpt=f"{root}/vocoder", id_to_spkr=f"{root}/id_to_spkr.pkl",
+                len_model_dir=f"{root}/len", f0_model_dir=f"{root}/pitch")
+
+
+def serving_split(h: VocoderConfig, gen_state: dict, root: str, dev: torch.device) -> dict:
+    """(d): ``VocoderEngine`` and ``ConversionPipeline`` split over the card
+    twice (every card where there are several) against one device."""
+    cards = torch.cuda.device_count()
+    split = [f"cuda:{i % cards}" for i in range(max(2, cards))]
+    rng = np.random.default_rng(2)
+    lengths = [100, 237, 400, 640, 1000, 1500, 2048, 77, 2600]  # the serve phase's
+    items = [{"code": rng.integers(0, h.num_embeddings, n).astype(np.int64),
+              "f0": rng.normal(0, 1, (n, 1)).astype(np.float32),
+              "spkr": np.array([i * 11 % 100])} for i, n in enumerate(lengths)]
+    one = VocoderEngine(h, gen_state, device=dev)
+    many = VocoderEngine(h, gen_state, devices=split)
+    timings = {}
+    for name, engine in (("one", one), ("split", many), ("one_again", one),
+                         ("split_again", many)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wavs, _ = engine.synthesize_utterances(items, batch_size=8)
+        timings[name] = 1e3 * (time.perf_counter() - t0)
+        if name == "one":
+            ref = wavs
+        elif name == "split":
+            got = wavs
+    check([len(w) for w in got] == [n * h.code_hop_size for n in lengths],
+          "the split engine's waveforms in input order, at their lengths")
+    wave_err = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+    check(wave_err <= 1e-4, f"split vs one-device waveforms: {wave_err}")
+
+    tree = write_serving_tree(root, h, gen_state)
+    records = [{"units": [int(u) for u in rng.integers(0, 100, n)], "f0": [0.0] * n,
+                "audio": f"s{i * 13 % N_SPEAKERS:03d}_{i}.wav"}
+               for i, n in enumerate([60, 120, 200, 90, 300, 150, 45, 250, 180])]
+    out = []
+    for devices in (None, split):
+        pipe = ConversionPipeline.load(**tree, device=dev, devices=devices)
+        t0 = time.perf_counter()
+        out.append(pipe.convert_batch(records, "s007", batch_size=8)[0])
+        timings["pipeline_one" if devices is None else "pipeline_split"] = (
+            1e3 * (time.perf_counter() - t0))
+    check([len(w) for w in out[1]] == [len(w) for w in out[0]], "pipeline waveforms in order")
+    pipe_err = max(float(np.abs(a - b).max()) for a, b in zip(*out))
+    check(pipe_err <= 1e-4, f"split vs one-device pipeline: {pipe_err}")
+    return {"devices": split, "wave_max_abs_err": wave_err, "pipeline_max_abs_err": pipe_err,
+            "ms": timings, "utterances": len(items), "records": len(records)}
+
+
+def cli_ranks(h: VocoderConfig, root: str, dev: torch.device) -> dict:
+    """(e): ``cli.sr_train`` at full width over a seeded corpus with its own
+    launcher (W = the cards that divide the batch): 2 steps with a
+    checkpoint, then resumed to 4."""
+    os.makedirs(root, exist_ok=True)
+    manifests = write_vocoder_corpus(root, n=h.batch_size, n_val=4)
+    config = write_vocoder_config(root, manifests)
+    ckpt = os.path.join(root, "ckpt")
+    argv = ["--config", config, "--checkpoint_path", ckpt, "--stdout_interval", "1",
+            "--checkpoint_interval", "2", "--validation_interval", "1000", "--device", str(dev)]
+    world = world_for_batch(h.batch_size, torch.cuda.device_count())
+    runs, restored = [], []
+    mel_kernel.reset_launch_counts()
+    with restored_states(restored):
+        for steps in (2, 4):
+            t0 = time.perf_counter()
+            result = sr_train.main(argv + ["--training_steps", str(steps)])
+            wall = time.perf_counter() - t0
+            files = sorted(f for f in os.listdir(ckpt) if f[:2] in ("g_", "do"))
+            runs.append({"to_step": steps, "wall_s": wall, "files": files,
+                         "stats": None if result is None else
+                         {k: result[1][k] for k in ("start_step", "step_s")}})
+            if result is not None:
+                del result
+            torch.cuda.empty_cache()
+    launches = mel_kernel.launch_counts["mel_spectrogram"]
+    check(runs[0]["files"] == ["do_00000002", "g_00000002"], f"files after run 1 {runs[0]}")
+    check(runs[1]["files"] == ["do_00000002", "do_00000004", "g_00000002", "g_00000004"],
+          f"files after run 2 {runs[1]['files']}")
+    if world == 1:
+        check(runs[1]["stats"]["start_step"] == 2 and len(restored) == 1
+              and restored[0]["step"] == 2, "the second run resumed at step 2")
+        check(launches == 2 * 4, f"K1 launches in the CLI's runs: {launches}")
+    saved = load_checkpoint(os.path.join(ckpt, "do_00000004"))
+    check(saved["steps"] == 4, f"do_00000004 holds step {saved['steps']}")
+    engine = VocoderEngine.from_checkpoint(ckpt, device=dev)
+    wav, _ = engine.synthesize_utterances([{"code": np.arange(50) % 100, "spkr": np.array([1]),
+                                            "f0": np.zeros((50, 1), np.float32)}])
+    check(wav[0].shape == (50 * h.code_hop_size,) and bool(np.isfinite(wav[0]).all()),
+          "the written g_ serves")
+    return {"world": world, "runs": runs, "k1_launches": launches}
+
+
+def data_parallel_phase(h: VocoderConfig, gen_state: dict, dev: torch.device) -> int:
+    """Phase 10; returns K1's launches over its runs (every rank's)."""
+    smi = card_name()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+        t0 = time.perf_counter()
+        steps = data_parallel_steps(root)
+        t1 = time.perf_counter()
+        serve = serving_split(h, gen_state, root, dev)
+        print("data parallel (d) serving split", json.dumps(dict(serve, card=smi)), flush=True)
+        t2 = time.perf_counter()
+        cli = cli_ranks(h, os.path.join(root, "cli"), dev)
+        print("data parallel (e) cli.sr_train", json.dumps(dict(cli, card=smi)), flush=True)
+        print(f"data parallel: steps {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, CLI "
+              f"{time.perf_counter() - t2:.1f} s", flush=True)
+    return steps["k1_launches"] + cli["k1_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2146,11 +2471,20 @@ def main() -> int:
     check(mel_kernel.launch_counts["mel_spectrogram"] == 0,
           "the F0-VQ and k-means paths launched no kernel of the port")
     print(f"F0-VQ and k-means: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mel_kernel.reset_launch_counts()
+    dp_launches = data_parallel_phase(h, vocoder_trainer.make_models(h, seed=25)[0].state_dict(),
+                                      dev)
+    print(f"data parallel: phase {time.perf_counter() - t0:.1f} s, K1 launches {dp_launches}",
+          flush=True)
 
     kernels = [{"name": "mel_spectrogram", "route": "cuda",
                 "source": "dissc_tpu_torch/csrc/mel_kernel.cu",
                 "replaces": "dissc_tpu/kernels/mel_kernel.py:112",
                 "launches": loop_launches, "launches_gan_steps": launches,
+                "launches_data_parallel": dp_launches,
                 "max_abs_err": mel_row["max_abs_err"],
                 "grad_max_abs_err": mel_row["grad_max_abs_err"],
                 "ms": mel_row["ms"], "kernel_ms": mel_row["kernel_ms"],

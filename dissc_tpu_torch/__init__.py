@@ -2,7 +2,8 @@
 
 The package mirrors ``dissc_tpu``'s layout (``core/``, ``audio/``,
 ``data/``, ``kernels/``, ``models/``, ``losses/``, ``train/``,
-``infer/``, ``compat/``) so each module's counterpart is found by path.
+``infer/``, ``compat/``, ``parallel/``) so each module's counterpart is
+found by path.
 It imports ``torch``, ``numpy`` and ``scipy`` only: nothing of JAX and
 nothing of ``dissc_tpu``.
 

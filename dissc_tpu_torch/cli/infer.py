@@ -4,28 +4,39 @@
     python -m dissc_tpu_torch.cli.infer --input_path val.txt --pred_len --pred_pitch --vc
 
 ``--device`` (default: the CUDA card) picks where the models run;
-``--device cpu`` runs them on the CPU.  ``--data_devices`` above 1 (a
-multi-card split) waits for the multi-GPU slice and raises; a negative
-count is a usage error (exit 2).
+``--device cpu`` runs them on the CPU.  ``--data_devices N`` above 1 splits
+every conversion batch over ``cuda:0`` .. ``cuda:N-1``; a negative count,
+more cards than are present, or a split with ``--device cpu`` is a usage
+error (exit 2).
 """
 import argparse
 import os
+from typing import List, Optional
+
+import torch
 
 from dissc_tpu_torch.core.seed import seed_everything
 from dissc_tpu_torch.device import resolve_device
 from dissc_tpu_torch.infer.prosody import infer_file
 
 
-def one_card(parser: argparse.ArgumentParser, data_devices: int) -> None:
-    """``--data_devices`` 0 or 1 is the one card; a negative count is a
-    usage error (exit 2), as the JAX CLIs refuse it; a split over more
-    cards is not ported yet (ROADMAP Queue 1, slice I) and raises."""
+def split_devices(parser: argparse.ArgumentParser, data_devices: int,
+                  device: torch.device) -> Optional[List[str]]:
+    """The cards ``--data_devices`` splits batches over: ``None`` (the one
+    ``device``) for 0 or 1, else ``cuda:0`` .. ``cuda:N-1``.  A negative
+    count, more cards than are present (the JAX ``create_mesh`` assert) or
+    a split of a CPU run is a usage error (exit 2)."""
     if data_devices < 0:
         parser.error(f"--data_devices must be 0 or more, got {data_devices}")
-    if data_devices > 1:
-        raise NotImplementedError(
-            f"--data_devices {data_devices}: splitting batches over several cards comes "
-            "with the multi-GPU slice (ROADMAP Queue 1, slice I); use 0 or 1")
+    if data_devices <= 1:
+        return None
+    if device.type != "cuda":
+        parser.error(f"--data_devices {data_devices} splits batches over CUDA cards; "
+                     f"--device {device} has none")
+    cards = torch.cuda.device_count()
+    if data_devices > cards:
+        parser.error(f"--data_devices {data_devices} but {cards} CUDA card(s) present")
+    return [f"cuda:{i}" for i in range(data_devices)]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wild_sample", action="store_true")
     parser.add_argument("--id_to_spkr", default=None)
     parser.add_argument("--data_devices", type=int, default=0,
-                        help="cards to split conversion batches over (0 or 1: the one card)")
+                        help="cards to split conversion batches over, cuda:0..N-1 "
+                             "(0 or 1: the one device)")
     return parser
 
 
@@ -73,8 +85,8 @@ def main(argv=None) -> None:
         "Inference must at least convert pitch or rhythm (or both)"
     assert (args.wild_sample & args.pred_len & args.pred_pitch) | (not args.wild_sample), \
         "If we use an unknown speaker we must convert both pitch and rhythm"
-    one_card(parser, args.data_devices)
     device = resolve_device(args.device)  # refuse before touching a file
+    devices = split_devices(parser, args.data_devices, device)
     seed_everything(args.seed)
     os.makedirs(args.out_path, exist_ok=True)
     infer_file(
@@ -93,6 +105,7 @@ def main(argv=None) -> None:
         wild=args.wild_sample,
         sample_df=args.sample_df,
         device=device,
+        devices=devices,
     )
 
 

@@ -3,16 +3,18 @@
 
     python -m dissc_tpu_torch.cli.sr_inference --input_code_file val.txt --vc
 
-The reference's 8-process GPU pool is replaced by batching on one card
-(:class:`~dissc_tpu_torch.infer.vocoder.VocoderEngine`).  ``--device``
-(default: the CUDA card) picks where the generator runs; ``--device cpu``
-runs it on the CPU.  ``--data_devices`` above 1 raises (multi-GPU slice);
-a negative count is a usage error (exit 2).
+The reference's 8-process GPU pool is replaced by batching
+(:class:`~dissc_tpu_torch.infer.vocoder.VocoderEngine`), on one card or
+split over ``--data_devices N`` cards (``cuda:0`` .. ``cuda:N-1``).
+``--device`` (default: the CUDA card) picks where the generator runs;
+``--device cpu`` runs it on the CPU.  A negative ``--data_devices``, more
+cards than are present, or a split with ``--device cpu`` is a usage error
+(exit 2).
 """
 import argparse
 from pathlib import Path
 
-from dissc_tpu_torch.cli.infer import one_card
+from dissc_tpu_torch.cli.infer import split_devices
 from dissc_tpu_torch.core.seed import seed_everything
 from dissc_tpu_torch.device import resolve_device
 from dissc_tpu_torch.infer.vocoder import run_inference
@@ -40,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-n", type=int, default=-1)
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--data_devices", type=int, default=0,
-                        help="cards to split synthesis batches over (0 or 1: the one card)")
+                        help="cards to split synthesis batches over, cuda:0..N-1 "
+                             "(0 or 1: the one device)")
     parser.add_argument("--device", default=None,
                         help="torch device to run on (default: the CUDA card; 'cpu' for the CPU)")
     return parser
@@ -50,8 +53,8 @@ def main(argv=None) -> float:
     """Synthesise; returns the mean RTF."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    one_card(parser, args.data_devices)
     device = resolve_device(args.device)  # refuse before touching a file
+    devices = split_devices(parser, args.data_devices, device)
     seed_everything(52)
     rtf = run_inference(
         checkpoint_file=args.checkpoint_file,
@@ -71,6 +74,7 @@ def main(argv=None) -> float:
         sample_df_path=str(args.sample_df) if args.sample_df else None,
         parts=args.parts,
         device=device,
+        devices=devices,
     )
     print(f"\nmean RTF: {rtf:.4f}")
     return rtf

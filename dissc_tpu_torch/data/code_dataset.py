@@ -261,7 +261,8 @@ class CodeDataset:
         return yaapt.f0_per_unit(f0_5ms, frames, per).reshape(-1, 1)
 
     def batches(self, batch_size: int, shuffle: bool, seed: int = 0,
-                use_native: bool = True, drop_last: bool = True) -> Iterator[Dict]:
+                use_native: bool = True, process_index: int = 0, process_count: int = 1,
+                drop_last: bool = True) -> Iterator[Dict]:
         """Fixed-shape stacked batches (training mode only).
 
         ``use_native``: route the audio crops through the C++ threaded
@@ -270,10 +271,21 @@ class CodeDataset:
         both paths; only decode/normalise/copy moves to native threads.
         With ``pad`` set the batches take the Python path, as in the JAX
         package (the native loader does not pad).
+
+        ``process_index``/``process_count``: data-parallel sharding, as in
+        the JAX package (the reference's ``DistributedSampler``,
+        ``sr/train.py:102``).  Every rank shuffles the same epoch order,
+        pads it by wrap-around to a multiple of ``process_count`` and takes
+        its strided slice; ``batch_size`` is the rank's batch.  With a
+        rank batch of ``B / W``, step k on all ranks together covers
+        ``order[kB:(k+1)B]``.  Each rank draws its own crops.
         """
         order = np.arange(len(self))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
+        if process_count > 1:
+            total = -(-len(order) // process_count) * process_count
+            order = np.resize(order, total)[process_index::process_count]
         if not drop_last and len(order) % batch_size:
             # wrap-around pad the final partial batch to the fixed batch
             # shape; callers that need exact per-item semantics trim the

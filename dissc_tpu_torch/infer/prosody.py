@@ -8,11 +8,17 @@ length buckets ``(128, 256, 512, 850, 1280)`` with an output capacity of
 rhythm stage per sample; BatchNorm runs in eval mode and every block is
 length-masked, so running it on the whole batch gives the same result.
 The carryover scan runs on a host copy (see ``len_carryover_correction``).
+With ``devices=[...]`` (the JAX converter's ``mesh``) each batch is split
+into contiguous row blocks, one a device, padded to a multiple of the
+device count by repeating the last row; each block converts on its own
+thread (its carryover scan still on the host, per row) and rows come back
+in order.  Every row is converted alone, so the split changes no number.
 
 Outputs follow the JSONL contract (``{"units", "f0", "audio"}``).
 """
 from __future__ import annotations
 
+import copy
 import os
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -37,6 +43,7 @@ from dissc_tpu_torch.data.stats import (
 )
 from dissc_tpu_torch.device import DeviceLike, resolve_device
 from dissc_tpu_torch.models.prosody import LenPredictor, calc_freq
+from dissc_tpu_torch.parallel.mesh import gather_rows, on_devices, split_for_devices
 from dissc_tpu_torch.train.checkpoints import load_checkpoint
 from dissc_tpu_torch.train.prosody_trainer import build_pitch_model
 
@@ -89,11 +96,14 @@ class ProsodyConverter:
     """Loads prosody checkpoints and converts unit records in bucketed
     batches (reference ``infer.py:66-84``: the rhythm model with its
     ``len_norm_stats``, the pitch model by type).  ``device=None`` runs on
-    the CUDA card and raises without one."""
+    the CUDA card and raises without one; ``devices`` splits each batch
+    over several (``device`` is then ignored)."""
 
     def __init__(self, n_tokens: int = 100, expand_factor: float = 2.0,
-                 buckets: Sequence[int] = DEFAULT_BUCKETS, device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 buckets: Sequence[int] = DEFAULT_BUCKETS, device: DeviceLike = None,
+                 devices: Optional[Sequence[DeviceLike]] = None):
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         self.n_tokens = n_tokens
         self.expand_factor = expand_factor
         self.buckets = buckets
@@ -103,17 +113,19 @@ class ProsodyConverter:
         self.pitch_model = None
         self.id2pitch_mean: Optional[np.ndarray] = None
         self.id2pitch_std: Optional[np.ndarray] = None
+        self._replicas: Dict[str, Tuple] = {}  # device -> (len model, pitch model)
 
     @classmethod
     def load(cls, n_speakers: int, len_model_dir: Optional[str] = None,
              f0_model_dir: Optional[str] = None, f0_model_type: str = "new",
              id2pitch_mean: Optional[np.ndarray] = None,
              id2pitch_std: Optional[np.ndarray] = None, n_tokens: int = 100,
-             device: DeviceLike = None) -> "ProsodyConverter":
+             device: DeviceLike = None,
+             devices: Optional[Sequence[DeviceLike]] = None) -> "ProsodyConverter":
         """Reads the JAX package's checkpoint dirs: ``best_model.pth`` (a
         pickle of ``{params, batch_stats}``) and, for the rhythm model,
         ``len_norm_stats.pth`` (mean, std)."""
-        self = cls(n_tokens=n_tokens, device=device)
+        self = cls(n_tokens=n_tokens, device=device, devices=devices)
         if len_model_dir:
             variables = load_checkpoint(os.path.join(len_model_dir, "best_model.pth"))
             model = LenPredictor(n_tokens=n_tokens, n_speakers=n_speakers)
@@ -139,6 +151,29 @@ class ProsodyConverter:
             self.len_norm_stats = tuple(float(np.float32(v)) for v in len_norm_stats)
         if pitch_model is not None:
             self.pitch_model = pitch_model.to(self.device).eval()
+        self._replicas = {}
+
+    def _models_on(self, dev: torch.device) -> Tuple:
+        """(len model, pitch model) on ``dev``: the installed ones on the
+        first device, copies elsewhere (made once)."""
+        if dev == self.device:
+            return self.len_model, self.pitch_model
+        if str(dev) not in self._replicas:
+            copy_to = lambda m: None if m is None else copy.deepcopy(m).to(dev).eval()  # noqa: E731
+            self._replicas[str(dev)] = (copy_to(self.len_model), copy_to(self.pitch_model))
+        return self._replicas[str(dev)]
+
+    def _convert_on(self, dev: torch.device, seqs: np.ndarray, lengths: np.ndarray,
+                    spk: np.ndarray, id2mean: np.ndarray, id2std: np.ndarray, **kw
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One block of rows through :func:`_convert_batch` on ``dev``, read back."""
+        len_model, pitch_model = self._models_on(dev)
+        out = _convert_batch(len_model, self.len_norm_stats, pitch_model,
+                             torch.as_tensor(id2mean, device=dev),
+                             torch.as_tensor(id2std, device=dev),
+                             *(torch.as_tensor(a, device=dev) for a in (seqs, lengths, spk)),
+                             **kw)
+        return tuple(a.cpu().numpy() for a in out)
 
     def convert_records(self, records: List[Dict], spk_id_dict: Dict[str, int],
                         target_speaker: Optional[str] = None, norm_pitch: bool = False,
@@ -155,14 +190,13 @@ class ProsodyConverter:
             n_units = sum(1 for u in rec["units"] if u != self.n_tokens)
             groups.setdefault(_bucket(n_units, self.buckets), []).append(i)
 
-        dev = self.device
         # without stats every speaker reads mean 0, std 1 (the JAX package's
         # one-entry tables, read with clamped indices)
         n_spk = len(spk_id_dict)
-        id2mean = torch.as_tensor(self.id2pitch_mean if self.id2pitch_mean is not None
-                                  else np.zeros(n_spk, np.float32), device=dev)
-        id2std = torch.as_tensor(self.id2pitch_std if self.id2pitch_std is not None
-                                 else np.ones(n_spk, np.float32), device=dev)
+        id2mean = (self.id2pitch_mean if self.id2pitch_mean is not None
+                   else np.zeros(n_spk, np.float32))
+        id2std = (self.id2pitch_std if self.id2pitch_std is not None
+                  else np.ones(n_spk, np.float32))
 
         for in_cap, idxs in groups.items():
             out_cap = int(in_cap * self.expand_factor)
@@ -179,12 +213,14 @@ class ProsodyConverter:
                     name = records[i]["audio"].split("_")[0]
                     spk[j, 0] = spk_id_dict[target_speaker if target_speaker is not None
                                             else name]
-                out_seqs, out_lens, f0 = _convert_batch(
-                    self.len_model, self.len_norm_stats, self.pitch_model, id2mean, id2std,
-                    *(torch.as_tensor(a, device=dev) for a in (seqs, lengths, spk)),
-                    in_cap=in_cap, out_cap=out_cap, norm_pitch=norm_pitch,
-                    n_tokens=self.n_tokens)
-                out_seqs, out_lens, f0 = (a.cpu().numpy() for a in (out_seqs, out_lens, f0))
+                kw = dict(in_cap=in_cap, out_cap=out_cap, norm_pitch=norm_pitch,
+                          n_tokens=self.n_tokens)
+                parts, rows = split_for_devices((seqs, lengths, spk), len(self.devices))
+                done = on_devices(
+                    lambda dev, part: self._convert_on(dev, *part, id2mean, id2std, **kw),
+                    list(zip(self.devices, parts)))
+                out_seqs, out_lens, f0 = (gather_rows([d[k] for d in done], rows)
+                                          for k in range(3))
                 for j, i in enumerate(chunk):
                     # totals past out_cap are cut: counted and warned, never silent
                     if int(out_lens[j]) > out_cap:
@@ -232,7 +268,8 @@ def infer_file(input_path: str, out_path: str, len_model_dir: Optional[str],
                n: Optional[int] = None, vc: bool = False,
                target_speakers: Optional[List[str]] = None, norm_pitch: bool = False,
                n_tokens: int = 100, wild: bool = False, sample_df: Optional[str] = None,
-               device: DeviceLike = None) -> None:
+               device: DeviceLike = None,
+               devices: Optional[Sequence[DeviceLike]] = None) -> None:
     """File-level entry point matching the reference CLI (``infer.py:47-155``):
     writes a reconstruction JSONL and/or per-target-speaker
     ``<t>_<input>.txt`` files.  ``sample_df`` is the speaker-verification
@@ -245,7 +282,7 @@ def infer_file(input_path: str, out_path: str, len_model_dir: Optional[str],
     conv = ProsodyConverter.load(
         n_speakers=len(spk_id_dict), len_model_dir=len_model_dir, f0_model_dir=f0_model_dir,
         f0_model_type=f0_model_type, id2pitch_mean=id2mean, id2pitch_std=id2std,
-        n_tokens=n_tokens, device=device)
+        n_tokens=n_tokens, device=device, devices=devices)
 
     records = list(iter_unit_records(input_path))
     if n is not None:

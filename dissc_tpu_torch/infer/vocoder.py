@@ -13,7 +13,15 @@ Behaviour of the JAX engine, on the card:
   (``r > 1`` is finer-rate conditioning: ``r*320`` samples per code
   frame) and batches are grouped by ``(bucket, r)``;
 * utterances past the last bucket stream through
-  :class:`~dissc_tpu_torch.infer.streaming.StreamingVocoder`.
+  :class:`~dissc_tpu_torch.infer.streaming.StreamingVocoder`;
+* with ``devices=[...]`` (the JAX engine's ``mesh``) each batch is split
+  into contiguous row blocks, one a device (padded to a multiple of the
+  device count by repeating the last row, which is cut again), every
+  block is launched before any is read back, and rows come back in input
+  order; the streamed utterances are dealt round the devices, each
+  streamed whole on one, the devices' streams running side by side.
+  The generator is per-sample, so every waveform equals the one-device
+  engine's.
 
 ``from_checkpoint`` reads ``config.json`` and the latest ``g_*`` pickle
 written by either package's trainer (JAX tree layout).
@@ -21,10 +29,12 @@ written by either package's trainer (JAX tree layout).
 :func:`run_inference` is the file-level driver of ``cli.sr_inference``
 (reference ``sr/inference.py``): resynthesis, per-target voice conversion
 and ground-truth copies written as WAVs.  Where the reference fans out
-one worker process per GPU, one engine batches the utterances on the card.
+one worker process per GPU, one engine batches the utterances and splits
+each batch over the cards it is given.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -43,6 +53,7 @@ from dissc_tpu_torch.device import DeviceLike, resolve_device
 from dissc_tpu_torch.infer.streaming import StreamingVocoder
 from dissc_tpu_torch.models.hifigan import CodeGenerator, refuse_f0_vq
 from dissc_tpu_torch.models.layers import fold_weight_norm
+from dissc_tpu_torch.parallel.mesh import gather_rows, on_devices, split_for_devices
 from dissc_tpu_torch.train.checkpoints import load_checkpoint, scan_checkpoint
 
 DEFAULT_FRAME_BUCKETS = (64, 128, 256, 512, 1024, 2048)
@@ -58,15 +69,18 @@ class VocoderEngine:
 
     ``gen_state`` is a port ``CodeGenerator`` state dict (weight-normed or
     already folded, as ``h.folded_weights`` says).  ``device=None`` runs
-    on the CUDA card and raises without one.
+    on the CUDA card and raises without one.  ``devices``: split every
+    batch over these (one replica of the generator a distinct device;
+    ``device`` is then ignored).
     """
 
     def __init__(self, h: VocoderConfig, gen_state: Dict[str, torch.Tensor],
                  frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
                  stream_chunk: int = 512, exact_lengths: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, devices: Optional[Sequence[DeviceLike]] = None):
         refuse_f0_vq(h, "VocoderEngine")
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         if not h.folded_weights:
             gen_state = fold_weight_norm(gen_state)
             h = dataclasses.replace(h, folded_weights=True)
@@ -74,10 +88,15 @@ class VocoderEngine:
         self.model = CodeGenerator(h)
         self.model.load_state_dict(gen_state)
         self.model.to(self.device).eval()
+        replicas = {str(self.device): self.model}
+        for d in self.devices[1:]:
+            if str(d) not in replicas:
+                replicas[str(d)] = copy.deepcopy(self.model).to(d).eval()
+        self.replicas = [replicas[str(d)] for d in self.devices]  # one a device
         self.frame_buckets = tuple(frame_buckets)
         self.stream_chunk = stream_chunk
         self.exact_lengths = exact_lengths
-        self._streamer: Optional[StreamingVocoder] = None
+        self._streamers: Dict[int, StreamingVocoder] = {}
 
     @classmethod
     def from_checkpoint(cls, checkpoint_path: str, **kw) -> "VocoderEngine":
@@ -95,23 +114,50 @@ class VocoderEngine:
         state = load_checkpoint(cp_g)
         return cls(h, generator_state_dict(state["generator"], h), **kw)
 
-    def _streamer_for_long(self) -> StreamingVocoder:
-        if self._streamer is None:
-            self._streamer = StreamingVocoder(self.model, chunk_frames=self.stream_chunk)
-        return self._streamer
+    def _streamer_for_long(self, part: int = 0) -> StreamingVocoder:
+        """The streamer of device ``part``'s replica."""
+        if part not in self._streamers:
+            self._streamers[part] = StreamingVocoder(self.replicas[part],
+                                                     chunk_frames=self.stream_chunk)
+        return self._streamers[part]
+
+    def _launch(self, part: int, code: np.ndarray, f0: Optional[np.ndarray],
+                spkr: Optional[np.ndarray]) -> torch.Tensor:
+        """Enqueue rows on device ``part``; returns the unfetched waveform."""
+        dev = self.devices[part]
+        return self.replicas[part](
+            torch.as_tensor(code, device=dev).long(),
+            None if f0 is None else torch.as_tensor(f0, device=dev),
+            None if spkr is None else torch.as_tensor(spkr, device=dev).long())
 
     @torch.inference_mode()
     def synthesize_batch(self, code: np.ndarray, f0: Optional[np.ndarray],
                          spkr: Optional[np.ndarray]) -> Tuple[np.ndarray, float]:
-        """``[B, T]`` codes (+ f0 / spkr) -> (``[B, T*hop]`` waveform, rtf)."""
+        """``[B, T]`` codes (+ f0 / spkr) -> (``[B, T*hop]`` waveform, rtf);
+        split over the engine's devices when it has several."""
         start = time.time()
-        dev = self.device
-        y = self.model(torch.as_tensor(code, device=dev).long(),
-                       None if f0 is None else torch.as_tensor(f0, device=dev),
-                       None if spkr is None else torch.as_tensor(spkr, device=dev).long())
-        y = y.cpu().numpy()
+        if len(self.devices) == 1:
+            y = self._launch(0, code, f0, spkr).cpu().numpy()
+        else:
+            parts, rows = split_for_devices((code, f0, spkr), len(self.devices))
+            pending = [self._launch(i, *part) for i, part in enumerate(parts)]
+            y = gather_rows([p.cpu().numpy() for p in pending], rows)
         rtf = (time.time() - start) / (y.size / self.h.sampling_rate)
         return y, rtf
+
+    def _stream(self, part: int, idxs: List[int], items: List[Dict[str, np.ndarray]],
+                rates: List[int]) -> List[Tuple[np.ndarray, float]]:
+        """Stream items ``idxs`` whole on device ``part``: (waveform, rtf) each."""
+        out = []
+        for i in idxs:
+            it = items[i]
+            start = time.time()
+            wav = self._streamer_for_long(part).synthesize(
+                it["code"], it.get("f0") if self.h.f0 else None,
+                it.get("spkr") if self.h.multispkr else None)
+            wav = wav[: len(it["code"]) * rates[i] * self.h.code_hop_size]
+            out.append((wav, (time.time() - start) / (wav.size / self.h.sampling_rate)))
+        return out
 
     def synthesize_utterances(self, items: List[Dict[str, np.ndarray]], batch_size: int = 8
                               ) -> Tuple[List[np.ndarray], float]:
@@ -150,14 +196,14 @@ class VocoderEngine:
                 cap = (len(it["code"]) if self.exact_lengths
                        else _bucket(len(it["code"]), self.frame_buckets))
                 groups.setdefault((cap, rates[i]), []).append(i)
-        for i in long_idx:
-            it = items[i]
-            start = time.time()
-            wav = self._streamer_for_long().synthesize(
-                it["code"], it.get("f0") if self.h.f0 else None,
-                it.get("spkr") if self.h.multispkr else None)
-            out[i] = wav[: len(it["code"]) * rates[i] * self.h.code_hop_size]
-            rtfs.append((time.time() - start) / (out[i].size / self.h.sampling_rate))
+        # long utterances dealt round the devices, each device streaming its own
+        n_dev = len(self.devices)
+        dealt = [(p, long_idx[p::n_dev]) for p in range(n_dev) if long_idx[p::n_dev]]
+        streamed = on_devices(lambda p, idxs: self._stream(p, idxs, items, rates), dealt)
+        for (_, idxs), results in zip(dealt, streamed):
+            for i, (wav, rtf) in zip(idxs, results):
+                out[i] = wav
+                rtfs.append(rtf)
         for (cap, r), idxs in groups.items():
             for s in range(0, len(idxs), batch_size):
                 chunk = idxs[s: s + batch_size]
@@ -241,6 +287,7 @@ def run_inference(
     sample_df_path: Optional[str] = None,
     parts: bool = False,
     device: DeviceLike = None,
+    devices: Optional[Sequence[DeviceLike]] = None,
 ) -> float:
     """File-level driver (``dissc_tpu.infer.vocoder.run_inference``).  Writes
     ``<name>_gen.wav`` (resynthesis with the source speaker),
@@ -249,8 +296,8 @@ def run_inference(
     the mean RTF.  ``sample_df_path`` is the speaker-verification pair CSV:
     only its (sample, target) pairs are converted, with no resynthesis and
     no ground truth.  ``device=None`` runs on the CUDA card and raises
-    without one."""
-    engine = VocoderEngine.from_checkpoint(checkpoint_file, device=device)
+    without one; ``devices`` splits each batch over several."""
+    engine = VocoderEngine.from_checkpoint(checkpoint_file, device=device, devices=devices)
     h = engine.h
     os.makedirs(output_dir, exist_ok=True)
 

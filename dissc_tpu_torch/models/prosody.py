@@ -27,6 +27,13 @@ In train mode (``module.train()``), as in the JAX models with
 The masks come from the ``generator`` passed to ``forward`` (a
 ``torch.Generator`` on the model's device), so a seeded trainer repeats
 its draws; JAX's draws come from its own PRNG and are not reproduced.
+
+Data parallelism (:func:`data_parallel`): each BatchNorm sums its batch
+statistics over the ranks (differentiably), so the statistics and the
+running averages are the global batch's, as in the JAX step on a sharded
+batch; and each mask or dropout draw is made at the global batch's shape
+from the same generator state on every rank, of which a rank keeps its
+rows, so a step does not depend on the number of ranks.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dissc_tpu_torch.models.layers import Embed, torch_conv_init
+from dissc_tpu_torch.parallel.collectives import psum_if
 
 LEAKY_SLOPE = 0.01  # torch default, as the reference's nn.LeakyReLU()
 PE_MAX_LEN = 850    # reference model/pitch_predictor.py:7
@@ -58,16 +66,31 @@ class FlaxBatchNorm(nn.BatchNorm1d):
     keys) whose train-mode step is flax's ``BatchNorm``: the batch variance
     is E[x^2] - E[x]^2 clipped at 0 (biased), and the running variance moves
     toward that biased value.  ``nn.BatchNorm1d`` moves it toward the
-    unbiased one, n/(n-1) larger.  Eval mode is ``nn.BatchNorm1d``'s."""
+    unbiased one, n/(n-1) larger.  Eval mode is ``nn.BatchNorm1d``'s.
+
+    With a process ``group`` set, the train-mode mean and E[x^2] are the
+    sums over every rank's rows divided by the global count (through
+    :func:`~dissc_tpu_torch.parallel.collectives.psum_if`, so the gradient
+    crosses ranks too).  ``nn.SyncBatchNorm`` would move the running
+    variance toward the unbiased value."""
 
     def __init__(self, ch: int):
         super().__init__(ch, eps=1e-5, momentum=0.1)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2))
-        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        if self.group is None:
+            mean = x.mean(dim=(0, 2))
+            sq = (x * x).mean(dim=(0, 2))
+        else:
+            ch = x.shape[1]
+            count = x.new_full((1,), float(x.shape[0] * x.shape[2]))
+            sums = psum_if(torch.cat([x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)), count]),
+                           self.group)
+            mean, sq = sums[:ch] / sums[-1], sums[ch:2 * ch] / sums[-1]
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
@@ -76,20 +99,47 @@ class FlaxBatchNorm(nn.BatchNorm1d):
         return (x - mean[:, None]) * scale[:, None] + self.bias[:, None]
 
 
+Shard = Optional[Tuple[int, int]]  # (rank, world) of a data-parallel step
+
+
+def _rand(shape, generator: Optional[torch.Generator], device, shard: Shard) -> torch.Tensor:
+    """``torch.rand(shape)``; under ``shard = (rank, world)`` the draw at the
+    global batch's shape (``world`` times the rows), of which this rank's
+    contiguous block is kept."""
+    if shard is None:
+        return torch.rand(shape, generator=generator, device=device)
+    rank, world = shard
+    full = torch.rand((shape[0] * world, *shape[1:]), generator=generator, device=device)
+    return full[rank * shape[0]:(rank + 1) * shape[0]]
+
+
 def _mask_embeddings(emb: torch.Tensor, keep_rate: float,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
+                     generator: Optional[torch.Generator], shard: Shard = None) -> torch.Tensor:
     """Zero whole per-position embedding vectors of ``[B, L, E]`` with
     probability ``1 - keep_rate`` (the JAX ``_mask_embeddings``)."""
-    keep = torch.rand(emb.shape[:2], generator=generator, device=emb.device) <= keep_rate
+    keep = _rand(emb.shape[:2], generator, emb.device, shard) <= keep_rate
     return emb * keep[..., None]
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             shard: Shard = None) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``, drawn from ``generator``."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = _rand(x.shape, generator, x.device, shard) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def data_parallel(model: nn.Module, group, rank: int, world: int) -> nn.Module:
+    """Set ``model`` (a prosody predictor) for a data-parallel step over
+    ``group``: its BatchNorms reduce their statistics over the ranks, and
+    its masks and dropout are drawn at the global batch's shape, rank
+    ``rank`` of ``world`` keeping its rows.  ``group=None`` undoes it."""
+    for m in model.modules():
+        if isinstance(m, FlaxBatchNorm):
+            m.group = group
+    model.batch_shard = None if group is None else (rank, world)
+    return model
 
 
 def _masker(length_mask: Optional[torch.Tensor]):
@@ -105,11 +155,12 @@ def _embed_inputs(module: nn.Module, seq: torch.Tensor, spk_id: torch.Tensor,
     mode the token embeddings are masked (then the PE dropped out)."""
     emb_seq = module.token_emb(seq)
     if module.training:
-        emb_seq = _mask_embeddings(emb_seq, 1.0 - module.masking_rate, generator)
+        emb_seq = _mask_embeddings(emb_seq, 1.0 - module.masking_rate, generator,
+                                   module.batch_shard)
     emb_spk = module.spk_emb(spk_id).expand(-1, seq.shape[1], -1)
     pe = getattr(module, "pe", None)
     if pe is not None:
-        emb_spk = pe(emb_spk, generator)
+        emb_spk = pe(emb_spk, generator, module.batch_shard)
     return torch.cat([emb_seq, emb_spk], dim=-1).transpose(1, 2)
 
 
@@ -121,6 +172,7 @@ class LenPredictor(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_tokens, self.masking_rate = n_tokens, masking_rate
+        self.batch_shard: Shard = None  # set by data_parallel
         self.token_emb = Embed(n_tokens + 1, emb_size, padding_idx=n_tokens, generator=generator)
         self.spk_emb = Embed(n_speakers, emb_size, generator=generator)
         self.cnn1 = _conv(2 * emb_size, hidden, 3, generator)
@@ -159,15 +211,15 @@ class LinearRampPE(nn.Module):
         super().__init__()
         self.d_model, self.max_len, self.dropout = d_model, max_len, dropout
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                shard: Shard = None) -> torch.Tensor:
         t = x.shape[1]
         pos = torch.arange(t, device=x.device).clamp(max=self.max_len - 1).float() / (self.max_len - 1)
         half = self.d_model // 2
         pe = torch.cat([pos[:, None].expand(t, half),
                         (1.0 - pos)[:, None].expand(t, self.d_model - half)], dim=-1)
         x = x + pe[None]
-        return _dropout(x, self.dropout, generator) if self.training else x
+        return _dropout(x, self.dropout, generator, shard) if self.training else x
 
 
 class _PitchCore(nn.Module):
@@ -180,6 +232,7 @@ class _PitchCore(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_tokens, self.masking_rate = n_tokens, masking_rate
+        self.batch_shard: Shard = None  # set by data_parallel
         self.token_emb = Embed(n_tokens + 1, emb_size, padding_idx=n_tokens, generator=generator)
         self.spk_emb = Embed(n_speakers + 1, emb_size, padding_idx=n_speakers,
                              generator=generator)

@@ -8,8 +8,15 @@ metrics.  The codebook state is four registered buffers per level (``k``,
 in its ``vq_state`` collection.  The first batch with ``update_k``
 bootstraps the codebook from the data, and the restart draws (the data
 tiled, plus ``N(0, 0.01 / sqrt(D))`` noise, permuted) come from the
-``generator`` passed to ``forward``.  The reference's cross-rank
-reduction of the EMA sums comes with the multi-GPU slice.
+``generator`` passed to ``forward``.
+
+Data parallelism (``group``, the JAX ``axis_name``): the EMA sums and
+counts of a batch are summed over the ranks (the reference's
+``dist.all_reduce``, ``sr/modules/vq.py:71-73``), and the bootstrap and
+restart rows are drawn from the all-gathered global input with the same
+generator state on every rank, so every rank's codebook is the one a
+single device computes from the global batch.  (The reference broadcasts
+rank 0's draw from rank 0's rows instead.)
 
 Layout NCW: a level's input is ``[B, D, T]``, its codes ``[B, T]``.
 """
@@ -23,14 +30,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dissc_tpu_torch.models.jukebox import Decoder, Encoder
+from dissc_tpu_torch.parallel.collectives import all_gather_rows_if, pmean_if, psum_if
 
 Metrics = Dict[str, torch.Tensor]
 
 
 class BottleneckBlock(nn.Module):
-    def __init__(self, k_bins: int, emb_width: int, mu: float, threshold: float = 1.0):
+    def __init__(self, k_bins: int, emb_width: int, mu: float, threshold: float = 1.0,
+                 group=None):
         super().__init__()
         self.k_bins, self.emb_width, self.mu, self.threshold = k_bins, emb_width, mu, threshold
+        self.group = group  # process group the codebook statistics reduce over
         self.register_buffer("k", torch.zeros(k_bins, emb_width))
         self.register_buffer("k_sum", torch.zeros(k_bins, emb_width))
         self.register_buffer("k_elem", torch.zeros(k_bins))
@@ -71,30 +81,34 @@ class BottleneckBlock(nn.Module):
         B, D, T = x.shape
         flat = x.permute(0, 2, 1).reshape(-1, D)
         with torch.no_grad():
-            prenorm = torch.linalg.vector_norm(flat - torch.mean(flat)) / math.sqrt(flat.numel())
+            # the global batch's rows, in the order one device holds them
+            every = all_gather_rows_if(flat, self.group) if update_k else flat
+            prenorm = (torch.linalg.vector_norm(every - torch.mean(every))
+                       / math.sqrt(every.numel()))
             if update_k and not bool(self.initted):
-                k_init = self._tile_to_bins(flat, generator)
+                k_init = self._tile_to_bins(every, generator)
                 self.k.copy_(k_init)
                 self.k_sum.copy_(k_init)
                 self.k_elem.fill_(1.0)
                 self.initted.fill_(True)
             x_l, fit = self.quantise(flat)
             x_d = self.k[x_l]
-            metrics: Metrics = dict(fit=fit, pn=prenorm)
+            metrics: Metrics = dict(fit=pmean_if(fit, self.group), pn=prenorm)
             if update_k:
-                metrics.update(self._update_k(flat, x_l, generator))
+                metrics.update(self._update_k(flat, every, x_l, generator))
         commit_loss = torch.linalg.vector_norm(x_d - flat) ** 2 / flat.numel()
         x_q = flat + (x_d - flat).detach()
         return (x_l.reshape(B, T), x_q.reshape(B, T, D).permute(0, 2, 1), commit_loss,
                 metrics)
 
-    def _update_k(self, x: torch.Tensor, x_l: torch.Tensor,
+    def _update_k(self, x: torch.Tensor, every: torch.Tensor, x_l: torch.Tensor,
                   generator: Optional[torch.Generator]) -> Metrics:
-        """EMA codebook update with dead-code restart (``sr/modules/vq.py:59-90``)."""
+        """EMA codebook update with dead-code restart (``sr/modules/vq.py:59-90``):
+        ``x`` this rank's rows, ``every`` the global batch's."""
         onehot = F.one_hot(x_l, self.k_bins).to(x.dtype)
-        _k_sum = onehot.T @ x
-        _k_elem = onehot.sum(0)
-        _k_rand = self._tile_to_bins(x, generator)
+        _k_sum = psum_if(onehot.T @ x, self.group)
+        _k_elem = psum_if(onehot.sum(0), self.group)
+        _k_rand = self._tile_to_bins(every, generator)
         old_k = self.k.clone()
         k_sum = self.mu * self.k_sum + (1.0 - self.mu) * _k_sum
         k_elem = self.mu * self.k_elem + (1.0 - self.mu) * _k_elem
@@ -114,11 +128,13 @@ class BottleneckBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """One :class:`BottleneckBlock` per level (reference ``sr/modules/vq.py:187-221``)."""
+    """One :class:`BottleneckBlock` per level (reference ``sr/modules/vq.py:187-221``);
+    ``group`` is the process group their statistics reduce over (the JAX
+    ``axis_name``)."""
 
-    def __init__(self, l_bins: int, emb_width: int, mu: float, levels: int):
+    def __init__(self, l_bins: int, emb_width: int, mu: float, levels: int, group=None):
         super().__init__()
-        self.level_blocks = nn.ModuleList(BottleneckBlock(l_bins, emb_width, mu)
+        self.level_blocks = nn.ModuleList(BottleneckBlock(l_bins, emb_width, mu, group=group)
                                           for _ in range(levels))
 
     def encode(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -146,13 +162,13 @@ class Bottleneck(nn.Module):
 class Quantizer(nn.Module):
     """Encoder -> VQ -> Decoder F0-VQVAE (reference ``sr/models.py:336-349``):
     ``[B, 1, T]`` f0 -> (reconstruction ``[B, 1, T]``, commit losses,
-    metrics)."""
+    metrics).  ``group``: the process group of a data-parallel run."""
 
     def __init__(self, f0_encoder_params: dict, f0_vq_params: dict, f0_decoder_params: dict,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group=None):
         super().__init__()
         self.encoder = Encoder(**f0_encoder_params, generator=generator)
-        self.vq = Bottleneck(**f0_vq_params)
+        self.vq = Bottleneck(**f0_vq_params, group=group)
         self.decoder = Decoder(**f0_decoder_params, generator=generator)
 
     def forward(self, f0: torch.Tensor, update_k: bool = True,

@@ -4,7 +4,9 @@ waveform out (``dissc_tpu.pipeline``).
 The reference chains CLI scripts through the filesystem
 (``scripts/convert_eval.py:55-139``: encode -> infer.py ->
 sr/inference.py).  :class:`ConversionPipeline` runs the same flow on one
-device and loads the artifact layout the JAX package's CLIs write:
+device, or splits the prosody and vocoder batches over several
+(``devices=``, the JAX pipeline's ``mesh``), and loads the artifact layout
+the JAX package's CLIs write:
 ``id_to_spkr.pkl``, ``f0_stats.pkl``, prosody checkpoint dirs
 (``best_model.pth`` + ``len_norm_stats.pth``), a vocoder checkpoint dir
 (``config.json`` + ``g_*``) and, for wav input, a HuBERT param pickle and
@@ -28,7 +30,7 @@ pitch follows the reference's nearest-interpolation heuristic
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -59,10 +61,12 @@ class ConversionPipeline:
              f0_stats: Optional[str] = None, hubert_weights: Optional[str] = None,
              kmeans_codebook: Optional[str] = None, n_tokens: int = 100,
              norm_pitch: bool = True, device: DeviceLike = None,
+             devices: Optional[Sequence[DeviceLike]] = None,
              **vocoder_kw) -> "ConversionPipeline":
         """``device=None`` runs every stage on the CUDA card and raises
-        without one."""
-        device = resolve_device(device)
+        without one.  ``devices``: the prosody converter and the vocoder
+        split their batches over these, and the encoder runs on the first."""
+        device = resolve_device(devices[0] if devices else device)
         spk_dict = load_id_to_spkr(id_to_spkr)
         stats = load_f0_stats(f0_stats) if f0_stats else None
         id2mean = id2std = None
@@ -71,8 +75,10 @@ class ConversionPipeline:
         prosody = ProsodyConverter.load(
             n_speakers=len(spk_dict), len_model_dir=len_model_dir,
             f0_model_dir=f0_model_dir, f0_model_type=f0_model_type,
-            id2pitch_mean=id2mean, id2pitch_std=id2std, n_tokens=n_tokens, device=device)
-        vocoder = VocoderEngine.from_checkpoint(vocoder_ckpt, device=device, **vocoder_kw)
+            id2pitch_mean=id2mean, id2pitch_std=id2std, n_tokens=n_tokens, device=device,
+            devices=devices)
+        vocoder = VocoderEngine.from_checkpoint(vocoder_ckpt, device=device, devices=devices,
+                                                **vocoder_kw)
         encoder = None
         if hubert_weights and kmeans_codebook:
             encoder = load_encoder(hubert_weights, kmeans_codebook, device=device)

@@ -36,6 +36,20 @@ generator as the JAX package's tree (so either package serves it);
 ``state_dict`` as a numpy tree, the step and the epoch.  A JAX ``do_``
 (optax states) cannot be resumed here: unpickling it needs ``optax``.
 
+Data parallelism (the reference's NCCL DDP, ``sr/train.py:72-79``; the JAX
+loop's mesh, ``dissc_tpu/train/vocoder_trainer.py:380-388``): under a
+process group :class:`GANTrainer` runs the generator forward through DDP
+and the D step through one DDP wrapper of MPD and MSD; the G step calls
+the unwrapped discriminators, whose parameters it freezes, so no reducer
+waits on them.  Every loss is a batch mean, so DDP's averaged gradient is
+the global batch's.  :func:`train_vocoder` feeds each rank
+``batch_size // W`` rows of its strided share of the epoch
+(``CodeDataset.batches(process_index, process_count)``), keeps the
+one-device ``steps_per_epoch`` and learning-rate schedule, and leaves the
+``id_to_spkr.pkl``, checkpoints, logs and validation (over the whole val
+split) to rank 0.  Checkpoints hold the unwrapped modules, so their layout
+is the same at any W.
+
 Reference behaviour mirrored on purpose: there is no VQ commit loss in
 the vocoder trainer (the config refuses the VQ paths).
 """
@@ -51,7 +65,9 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+from torch.nn.parallel import DistributedDataParallel
 
 from dissc_tpu_torch.audio.mel import mel_spectrogram
 from dissc_tpu_torch.compat.from_jax import (generator_state_dict, mpd_state_dict,
@@ -66,6 +82,9 @@ from dissc_tpu_torch.losses.gan import discriminator_loss, feature_loss, generat
 from dissc_tpu_torch.models.discriminators import (MultiPeriodDiscriminator,
                                                    MultiScaleDiscriminator)
 from dissc_tpu_torch.models.hifigan import CodeGenerator, refuse_f0_vq
+from dissc_tpu_torch.parallel import distributed
+from dissc_tpu_torch.parallel.collectives import pmean_if
+from dissc_tpu_torch.parallel.mesh import local_batch_slice
 from dissc_tpu_torch.train.checkpoints import (load_checkpoint, save_checkpoint,
                                                scan_checkpoint, step_checkpoint_name)
 from dissc_tpu_torch.train.logging import MetricLogger
@@ -112,6 +131,17 @@ def _frozen(*modules: nn.Module):
             p.requires_grad_(True)
 
 
+class Discriminators(nn.Module):
+    """MPD and MSD as one module, so the D step runs through one DDP wrapper."""
+
+    def __init__(self, mpd: MultiPeriodDiscriminator, msd: MultiScaleDiscriminator):
+        super().__init__()
+        self.mpd, self.msd = mpd, msd
+
+    def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
+        return self.mpd(y, y_hat), self.msd(y, y_hat)
+
+
 def lr_at(h: VocoderConfig, step: int, steps_per_epoch: Optional[int]) -> float:
     """The learning rate of optimizer step ``step`` (0-based, optax's
     ``count``): ``lr * lr_decay ** (step // steps_per_epoch)``, which is
@@ -130,6 +160,12 @@ class GANTrainer:
     decays the learning rate per epoch (:func:`lr_at`); ``None`` trains at
     the constant ``h.learning_rate``.  Each optimizer always holds the rate
     of its next update.
+
+    Under a process group the step runs DDP over its ranks: ``gen``,
+    ``mpd`` and ``msd`` stay the unwrapped modules; ``gen_dp`` and
+    ``disc_dp`` are what the step's forwards call (the DDP wrappers, or
+    the modules themselves without a group).  The losses it returns are
+    then the means over the ranks.
     """
 
     def __init__(self, h: VocoderConfig, device: DeviceLike = None,
@@ -139,6 +175,14 @@ class GANTrainer:
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
         self.gen, self.mpd, self.msd = (m.to(self.device) for m in make_models(h, seed))
+        self.group = dist.group.WORLD if distributed.is_initialized() else None
+        self.gen_dp: nn.Module = self.gen
+        self.disc_dp: nn.Module = Discriminators(self.mpd, self.msd)
+        if self.group is not None:
+            # the spectral-norm vectors agree on every rank by construction
+            wrap = functools.partial(DistributedDataParallel, process_group=self.group,
+                                     broadcast_buffers=False)
+            self.gen_dp, self.disc_dp = wrap(self.gen_dp), wrap(self.disc_dp)
         adamw = lambda params: torch.optim.AdamW(params, lr=h.learning_rate,
                                                  betas=(h.adam_b1, h.adam_b2), eps=1e-8,
                                                  weight_decay=0.01)
@@ -162,20 +206,20 @@ class GANTrainer:
         """One D step then one G step; returns detached loss tensors named
         as the JAX step's metrics."""
         code, f0, spkr, y = self._inputs(batch)
-        for m in (self.gen, self.mpd, self.msd):
+        for m in (self.gen_dp, self.disc_dp):
             m.train()
-        y_g_hat = self.gen(code, f0, spkr)
+        y_g_hat = self.gen_dp(code, f0, spkr)
 
         # D step on the detached fake
         y_det = y_g_hat.detach()
-        p_rs, p_gs, _, _ = self.mpd(y, y_det)
-        s_rs, s_gs, _, _ = self.msd(y, y_det)
+        (p_rs, p_gs, _, _), (s_rs, s_gs, _, _) = self.disc_dp(y, y_det)
         d_loss = discriminator_loss(p_rs, p_gs)[0] + discriminator_loss(s_rs, s_gs)[0]
         self.opt_d.zero_grad(set_to_none=True)
         d_loss.backward()
         self.opt_d.step()
 
-        # G step against the updated discriminators
+        # G step against the updated discriminators, called unwrapped: their
+        # parameters take no gradient here, so no DDP reducer waits on them
         with torch.no_grad():
             y_mel = self.mel_fn(y)
         loss_mel = torch.mean(torch.abs(y_mel - self.mel_fn(y_g_hat))) * 45.0
@@ -190,9 +234,13 @@ class GANTrainer:
         self.opt_g.step()
         self.step += 1
         self._set_lr()
-        return {"loss_disc": d_loss.detach(), "loss_gen_total": g_loss.detach(),
-                "loss_mel": loss_mel.detach() / 45.0, "loss_fm": loss_fm.detach(),
-                "loss_adv": loss_adv.detach()}
+        losses = {"loss_disc": d_loss.detach(), "loss_gen_total": g_loss.detach(),
+                  "loss_mel": loss_mel.detach() / 45.0, "loss_fm": loss_fm.detach(),
+                  "loss_adv": loss_adv.detach()}
+        if self.group is None:
+            return losses
+        means = pmean_if(torch.stack(list(losses.values())), self.group)
+        return dict(zip(losses, means))
 
     @torch.no_grad()
     def val_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -330,9 +378,16 @@ def train_vocoder(
     that prints its losses, every ``stdout_interval``, waits for the card
     there, so at 1 these are step times); ``prefetch_wait_s``, the loop's
     wait on the prefetch queue; ``checkpoint_s`` (each ``g_``/``do_``
-    write); ``validation_s``; ``wall_s``, the epoch loop."""
+    write); ``validation_s``; ``wall_s``, the epoch loop.
+
+    Under a process group each of its W ranks trains on ``h.batch_size //
+    W`` rows a step (``batch_size`` is the global batch) and rank 0 alone
+    writes and validates; each rank returns its own trainer and stats."""
     refuse_f0_vq(h, "train_vocoder")
     dev = resolve_device(device)
+    rank, world = distributed.rank(), distributed.world_size()
+    rank_batch = local_batch_slice(h.batch_size, world)
+    lead = rank == 0
     os.makedirs(checkpoint_path, exist_ok=True)
 
     train_files, val_files = get_dataset_filelist(h)
@@ -344,7 +399,7 @@ def train_vocoder(
                            **data_kw)
     ds_val = CodeDataset(val_files, h.segment_size, h.code_hop_size, h.sampling_rate,
                          id_to_spkr=getattr(ds_train, "id_to_spkr", None), **data_kw)
-    if h.multispkr:
+    if h.multispkr and lead:
         # the reference's plain list (sr/train.py:107-108), which both
         # packages' load_id_to_spkr read
         save_id_to_spkr(os.path.join(checkpoint_path, "id_to_spkr.pkl"), ds_train.id_to_spkr)
@@ -356,12 +411,15 @@ def train_vocoder(
     last_epoch = -1
     if cp_g and cp_do:
         last_epoch = trainer.restore(cp_g, cp_do)
-        print(f"Resumed from {cp_g} at step {trainer.step}")
+        if lead:
+            print(f"Resumed from {cp_g} at step {trainer.step}")
     stats: Dict[str, Any] = dict(start_step=trainer.step, step_s=[], prefetch_wait_s=0.0,
                                  checkpoint_s=[], validation_s=[], wall_s=0.0)
-    logger = MetricLogger(os.path.join(checkpoint_path, "logs"))
+    logger = MetricLogger(os.path.join(checkpoint_path, "logs")) if lead else None
 
     def save_all(epoch: int) -> None:
+        if not lead:
+            return
         t0 = time.perf_counter()
         trainer.save(checkpoint_path, epoch)
         stats["checkpoint_s"].append(time.perf_counter() - t0)
@@ -401,7 +459,8 @@ def train_vocoder(
                 "(each draw crops randomly)")
         for epoch in range(max(0, last_epoch), training_epochs):
             start = time.time()
-            batches = ds_train.batches(h.batch_size, shuffle=True, seed=h.seed + epoch)
+            batches = ds_train.batches(rank_batch, shuffle=True, seed=h.seed + epoch,
+                                       process_index=rank, process_count=world)
             with Prefetcher(batches, pin=dev.type == "cuda") as prefetch:
                 try:
                     ready = time.perf_counter()
@@ -412,23 +471,24 @@ def train_vocoder(
                         t0 = time.time()
                         metrics = trainer.train_step(_device_batch(batch, dev))
                         steps += 1
-                        if steps % stdout_interval == 0:
+                        if lead and steps % stdout_interval == 0:
                             m = {k: float(v) for k, v in metrics.items()}
                             print(f"step {steps}: gen {m['loss_gen_total']:.3f} "
                                   f"mel {m['loss_mel']:.3f} disc {m['loss_disc']:.3f} "
                                   f"({time.time() - t0:.2f}s/b)")
                         stats["step_s"].append(time.perf_counter() - ready)
-                        if steps % summary_interval == 0:
+                        if lead and steps % summary_interval == 0:
                             logger.scalars({k: float(v) for k, v in metrics.items()}, steps,
                                            prefix="training/")
                         if steps % checkpoint_interval == 0:
                             save_all(epoch)
-                        if steps % validation_interval == 0:
+                        if lead and steps % validation_interval == 0:
                             validate(steps)
                         ready = time.perf_counter()
                 finally:
                     stats["prefetch_wait_s"] += prefetch.wait_s
-            print(f"epoch {epoch} done in {time.time() - start:.1f}s")
+            if lead:
+                print(f"epoch {epoch} done in {time.time() - start:.1f}s")
         save_all(training_epochs - 1)
 
     start = time.perf_counter()
@@ -436,5 +496,6 @@ def train_vocoder(
         run_epochs()
     finally:
         stats["wall_s"] = time.perf_counter() - start
-        logger.close()
+        if logger is not None:
+            logger.close()
     return trainer, stats

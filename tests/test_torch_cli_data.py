@@ -177,5 +177,6 @@ def test_infer_cli_keeps_the_jax_asserts_and_refuses_a_multi_card_split():
         infer.main(["--input_path", "/nonexistent.txt", "--device", "cpu"])
     with pytest.raises(AssertionError):
         infer.main(["--pred_len", "--wild_sample", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice I"):
+    with pytest.raises(SystemExit) as exit_info:  # a split over cards of a CPU run
         infer.main(["--pred_len", "--data_devices", "4", "--device", "cpu"])
+    assert exit_info.value.code == 2

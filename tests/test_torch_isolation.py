@@ -33,7 +33,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package(tmp_path):
                  "eval.align", "eval.metrics", "eval.asr", "models.whisper",
                  "models.whisper_files", "models.ecapa", "models.jukebox", "models.vq",
                  "models.kmeans", "eval.sv", "cli.eval_sv", "cli.convert_eval_sv",
-                 "train.quantizer_trainer", "compat.torch_import", "compat.from_jax"):
+                 "train.quantizer_trainer", "compat.torch_import", "compat.from_jax",
+                 "parallel.distributed", "parallel.collectives", "parallel.mesh",
+                 "parallel.dryrun"):
         assert f"dissc_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -151,9 +153,10 @@ def test_conversion_and_eval_clis_raise_without_cuda_unless_cpu_is_asked(name, m
     else:  # with the CPU asked for, it goes on to read
         with pytest.raises(FileNotFoundError):
             cli.main(argv + ["--device", "cpu"])
-    if name in ("infer", "sr_inference"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+    if name in ("infer", "sr_inference"):  # no silent CPU run of a split over cards
+        with pytest.raises(SystemExit) as exit_info:
             cli.main(argv + ["--data_devices", "2", "--device", "cpu"])
+        assert exit_info.value.code == 2
 
 
 @pytest.mark.parametrize("name", ["infer", "sr_inference"])

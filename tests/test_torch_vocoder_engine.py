@@ -49,7 +49,7 @@ def test_engine_matches_jax_engine(exact_lengths):
     assert [len(w) for w in out] == [960, 3200, 5120, 4480, 25600][:len(items)]
     for w, rw in zip(out, ref):
         assert np.abs(w - rw).max() < 1e-4
-    assert (engine._streamer is not None) == (not exact_lengths)
+    assert bool(engine._streamers) == (not exact_lengths)
 
 
 def test_streamed_item_equals_monolithic_forward():
