@@ -97,7 +97,26 @@ HuBERT-base, with weights drawn from a fixed seed:
    one streamed; 9 records), within 1e-4 and in order; (e) ``cli.sr_train``
    with its own launcher (W = the cards that divide the batch) for 2 steps,
    then resumed to 4, rank 0's ``g_``/``do_`` served; (f) where there are
-   several cards, (a) at W = the card count; else it says it skipped.
+   several cards, (a) at W = the card count; else it says it skipped;
+11. bfloat16, the mixed-precision compute paths, with the launch counters
+   set to 0 just before and read just after: (a) ``bench.py``'s shape
+   through phase 5's float32 models and, in turn on the same inputs, their
+   bfloat16 counterparts loaded through the entry points (a vocoder
+   ``config.json`` with ``compute_dtype`` bfloat16, ``load_encoder`` with
+   ``HubertConfig(compute_dtype="bfloat16")``, a ``ConversionPipeline``),
+   stage ms and RTF of both; the vocoder on the same records in both
+   dtypes within ``tests/test_bf16.py``'s bounds (log-mel mean L1 and max
+   |dy| < 0.05), its waveform float32, HuBERT's units equal on >= 95 % of
+   frames, one pipeline call on a recording; card vs CPU bfloat16 on one
+   utterance (vocoder) and 1 s (HuBERT), within the sum of the two
+   devices' bfloat16-vs-float32 distances; the generator is phase 10's
+   seeded init with its weight-norm gains 0.8 and biases 0, so that its
+   waveform has speech's level; (b) ``cli.sr_train`` at
+   ``VocoderConfig()`` with ``compute_dtype`` and ``disc_compute_dtype``
+   bfloat16, batch 64, over phase 6's corpus, 4 steps: ms a step, peak
+   GiB, K1 twice a step, float32 master parameters, the ``g_`` file in the
+   JAX layout; then one ``GANTrainer`` step in float32 and in bfloat16
+   from one init and one batch, each loss within 0.05 |f32| + 0.05.
 
 It exits non-zero on any failure and without a card.  The line before
 the last is the ``kernels`` JSON object; the last line is
@@ -2413,6 +2432,258 @@ def data_parallel_phase(h: VocoderConfig, gen_state: dict, dev: torch.device) ->
     return steps["k1_launches"] + cli["k1_launches"]
 
 
+# ---------------------------------------------------------------------------
+# 11. bfloat16: the mixed-precision compute paths
+# ---------------------------------------------------------------------------
+
+BF16 = dict(compute_dtype="bfloat16", disc_compute_dtype="bfloat16")
+BF16_MEL_L1, BF16_MAX_DY = 0.05, 0.05  # tests/test_bf16.py's bounds, bf16 vs f32 waveforms
+BF16_UNIT_SHARE = 0.95  # tests/test_hubert_bf16.py's bound, bf16 vs f32 units
+BF16_STEPS = 4
+
+
+def rel_l2(a, b) -> float:
+    a, b = (np.asarray(x, np.float64) for x in (a, b))
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def bf16_convert_models(m: dict, h: VocoderConfig, gen_state: dict, root: str,
+                        dev) -> dict:
+    """``m``'s conversion models in bfloat16 through the entry points: the
+    generator as a checkpoint directory whose ``config.json`` sets
+    ``compute_dtype`` bfloat16 (``VocoderEngine.from_checkpoint``), HuBERT
+    from its JAX-layout files through ``load_encoder(...,
+    HubertConfig(compute_dtype="bfloat16"))``, both in a
+    ``ConversionPipeline`` with ``m``'s prosody models (float32)."""
+    from dissc_tpu_torch.compat.to_jax import generator_tree, hubert_params
+    from dissc_tpu_torch.models.hubert import load_encoder
+    from dissc_tpu_torch.train.checkpoints import save_checkpoint
+
+    ckpt = os.path.join(root, "vocoder")
+    save_checkpoint(os.path.join(ckpt, "g_00000000"),
+                    {"generator": generator_tree(gen_state, h)})
+    with open(os.path.join(ckpt, "config.json"), "w") as fh:
+        json.dump(dict(h.to_dict(), compute_dtype="bfloat16"), fh)
+    save_checkpoint(os.path.join(root, "hubert.pkl"),
+                    {"params": hubert_params(m["hub_state"], m["hub_cfg"])})
+    np.save(os.path.join(root, "km.npy"), m["codebook"])
+    hub_cfg = dataclasses.replace(m["hub_cfg"], compute_dtype="bfloat16")
+    encoder = load_encoder(os.path.join(root, "hubert.pkl"), os.path.join(root, "km.npy"),
+                           hub_cfg, device=dev)
+    f0_stats = {n: {"mean": float(m["id2mean"][i]), "std": float(m["id2std"][i])}
+                for n, i in m["spk_dict"].items()}
+    # phase 5 (b)'s rhythm de-normalisation, which keeps a recording inside out_cap
+    pipe = ConversionPipeline(VocoderEngine.from_checkpoint(ckpt, device=dev),
+                              converter(m, dev, (1.5, 0.5)), m["spk_dict"],
+                              f0_stats=f0_stats, encoder=encoder)
+    check(pipe.vocoder.model.conv_pre.dtype == torch.bfloat16
+          and pipe.vocoder.model.conv_post.dtype is None, "the engine follows config.json")
+    return dict(m, hub_cfg=hub_cfg, encoder=encoder, engine=pipe.vocoder, pipe=pipe)
+
+
+def stage_row(m: dict, wavs: np.ndarray, names: list) -> tuple:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    units, converted, out, stage_ms = convert_stages(m, wavs, names)
+    audio_s = sum(len(w) for w in out) / m["engine"].h.sampling_rate
+    row = {"encode_ms": stage_ms[0], "prosody_ms": stage_ms[1], "vocode_ms": stage_ms[2],
+           "wall_ms": float(stage_ms.sum()), "rtf": float(stage_ms.sum()) / 1e3 / audio_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return row, (units, converted, out)
+
+
+def waveform_gaps(a: list, b: list, dev) -> tuple:
+    """(log-mel mean L1, max |a - b|) over utterances of equal lengths."""
+    l1, dy = [], 0.0
+    for x, y in zip(a, b):
+        tx, ty = (torch.from_numpy(np.ascontiguousarray(v))[None].to(dev) for v in (x, y))
+        l1.append(float((mel_spectrogram(tx) - mel_spectrogram(ty)).abs().mean()))
+        dy = max(dy, float(np.abs(x - y).max()))
+    return float(np.mean(l1)), dy
+
+
+def bf16_card_vs_cpu(m32: dict, m16: dict, h: VocoderConfig, gen_state: dict, root: str,
+                     items: list, dev) -> dict:
+    """One utterance through the vocoder and 1 s through HuBERT, each in
+    bfloat16 and float32 on the card and on the CPU.  Limit: the card's
+    bfloat16 lies no farther from the CPU's than the sum of the two
+    devices' own bfloat16-vs-float32 distances (each device's rounding
+    moves it that far from float32, float32 agreeing across them)."""
+    from dissc_tpu_torch.models.hubert import load_encoder
+
+    item = dict(items[0], code=items[0]["code"][:100], f0=items[0]["f0"][:100])
+    wav = (np.random.default_rng(24).standard_normal(16000) * 0.1).astype(np.float32)
+    engines = {("card", "bf16"): m16["engine"], ("card", "f32"): m32["engine"],
+               ("cpu", "bf16"): VocoderEngine.from_checkpoint(os.path.join(root, "vocoder"),
+                                                             device="cpu"),
+               ("cpu", "f32"): VocoderEngine(h, gen_state, device="cpu")}
+    encoders = {("card", "bf16"): m16["encoder"], ("card", "f32"): m32["encoder"],
+                ("cpu", "bf16"): load_encoder(os.path.join(root, "hubert.pkl"),
+                                              os.path.join(root, "km.npy"), m16["hub_cfg"],
+                                              device="cpu"),
+                ("cpu", "f32"): SpeechUnitEncoder(m32["hub_state"], m32["codebook"],
+                                                  m32["hub_cfg"], device="cpu")}
+    y = {k: e.synthesize_utterances([item])[0][0] for k, e in engines.items()}
+    with torch.inference_mode():
+        f = {k: e.model(torch.as_tensor(wav[None], device=e.device)).float().cpu().numpy()
+             for k, e in encoders.items()}
+    out = {}
+    for name, v in (("vocoder", y), ("hubert", f)):
+        row = {"card_bf16_vs_cpu_bf16": rel_l2(v["card", "bf16"], v["cpu", "bf16"]),
+               "card_f32_vs_cpu_f32": rel_l2(v["card", "f32"], v["cpu", "f32"]),
+               "card_bf16_vs_f32": rel_l2(v["card", "bf16"], v["card", "f32"]),
+               "cpu_bf16_vs_f32": rel_l2(v["cpu", "bf16"], v["cpu", "f32"])}
+        row["limit"] = row["card_bf16_vs_f32"] + row["cpu_bf16_vs_f32"]
+        out[name] = row
+    print("bf16 (a) card vs CPU (relative L2)", json.dumps(out), flush=True)
+    for name, row in out.items():
+        check(row["card_bf16_vs_cpu_bf16"] <= row["limit"],
+              f"{name} bf16 card vs CPU {row['card_bf16_vs_cpu_bf16']} > {row['limit']}")
+    return out
+
+
+BF16_GAIN = 0.8  # the generator's weight-norm gains in (a): speech-level waveforms
+
+
+def audible(gen_state: dict) -> dict:
+    """``gen_state`` (an init's) with every weight-norm gain ``BF16_GAIN`` and
+    every bias 0.  At the init's gains (~0.1) the waveform is nearly its
+    last bias, a constant, whose log-mel is the clip floor's noise (bf16 vs
+    f32 log-mel L1 0.30 at max |dy| 6e-5 on the card); at gains 1, as phase
+    7 writes its generator, the bench's f0 in Hz drives it to peaks of 0.99
+    (rms 0.46 on the CPU); at 0.8 its rms is ~0.09 with peaks ~0.45, a
+    level of speech.  Phase 3's generator, four steps on, saturates at 0.8
+    (rms 1.0), so phase 11 takes phase 10's seeded init."""
+    return {k: (torch.full_like(v, BF16_GAIN) if k.endswith("weight_g") else
+                torch.zeros_like(v) if k.endswith("bias") else v)
+            for k, v in gen_state.items()}
+
+
+def bf16_convert(h: VocoderConfig, gen_state: dict, root: str, dev) -> None:
+    """(a): ``bench.py``'s shape through the float32 models of phase 5 and
+    their bfloat16 counterparts (the prosody models are float32 in both),
+    in turn on the same inputs (the first run warms up); the generator is
+    ``gen_state`` made :func:`audible`."""
+    gen_state = audible(gen_state)
+    m32 = build_convert_models(h, gen_state, dev)
+    m16 = bf16_convert_models(m32, h, gen_state, root, dev)
+    rng = np.random.default_rng(9)
+    rows = []
+    for run in range(3):
+        wavs, names = bench_inputs(rng)
+        r32, (units32, conv32, _) = stage_row(m32, wavs, names)
+        r16, (units16, _, _) = stage_row(m16, wavs, names)
+        rows.append({"run": run, "f32": r32, "bf16": r16})
+        print("bf16 (a) bench shape", json.dumps(rows[-1]), flush=True)
+    mean = {dt: {k: float(np.mean([r[dt][k] for r in rows[1:]])) for k in rows[0][dt]}
+            for dt in ("f32", "bf16")}
+    print("bf16 (a) mean of the timed runs", json.dumps(mean), flush=True)
+
+    # the vocoder on the same converted records in both dtypes
+    items = [{"code": np.asarray(c["units"], np.int64),
+              "f0": np.asarray(c["f0"], np.float32).reshape(-1, 1),
+              "spkr": np.array([m32["spk_dict"][n]])} for c, n in zip(conv32, names)]
+    y32, _ = m32["engine"].synthesize_utterances(items, batch_size=len(items))
+    y16, _ = m16["engine"].synthesize_utterances(items, batch_size=len(items))
+    mel_l1, max_dy = waveform_gaps(y16, y32, dev)
+    unit_share = float((units16 == units32).mean())
+    with torch.inference_mode():
+        head = m16["engine"].model(*(torch.as_tensor(a, device=dev)[None] for a in (
+            items[0]["code"][:64], items[0]["f0"][:64], items[0]["spkr"])))
+    probe, probe_sr = m16["pipe"].convert(voiced_stretches(22050, seed=8), "spk003",
+                                         sr=22050, source_speaker="spk010")
+    flat32, flat16 = np.concatenate(y32), np.concatenate(y16)
+    gates = {"waveform_log_mel_l1": mel_l1, "waveform_max_abs_diff": max_dy,
+             "waveform_rel_l2": rel_l2(flat16, flat32),
+             "f32_waveform_rms": float(np.sqrt(np.mean(flat32 ** 2))),
+             "f32_waveform_peak": float(np.abs(flat32).max()),
+             "waveform_dtype": str(y16[0].dtype), "forward_dtype": str(head.dtype),
+             "hubert_unit_share": unit_share, "utterances": len(items),
+             "pipeline_probe": {"output_s": len(probe) / probe_sr,
+                                "finite": bool(np.isfinite(probe).all())}}
+    print("bf16 (a) bf16 vs f32", json.dumps(gates), flush=True)
+    check(mel_l1 < BF16_MEL_L1, f"bf16 vs f32 log-mel L1 {mel_l1}")
+    check(max_dy < BF16_MAX_DY, f"bf16 vs f32 max |dy| {max_dy}")
+    check(max_dy > 0, "the bf16 engine computed in bf16")
+    check(gates["f32_waveform_rms"] > 0.01 and gates["f32_waveform_peak"] < 0.99,
+          "the compared waveforms are neither near silent nor saturated")
+    check(all(w.dtype == np.float32 for w in y16) and head.dtype == torch.float32,
+          "the f32 head: the bf16 generator's waveform is float32")
+    check(unit_share >= BF16_UNIT_SHARE, f"HuBERT bf16 vs f32 units agree on {unit_share}")
+    check(gates["pipeline_probe"]["finite"] and len(probe) % 320 == 0,
+          "the bf16 pipeline converts a recording")
+    bf16_card_vs_cpu(m32, m16, h, gen_state, root, items, dev)
+
+
+def bf16_train(h: VocoderConfig, root: str, dev) -> int:
+    """(b): ``cli.sr_train`` with both compute dtypes bfloat16 over phase 6's
+    corpus for ``BF16_STEPS`` steps, then one ``GANTrainer`` step in float32
+    and in bfloat16 from one init and one batch; returns K1's launches."""
+    os.makedirs(root)
+    manifests = write_vocoder_corpus(root)
+    config = write_vocoder_config(root, manifests, **BF16)
+    ckpt = os.path.join(root, "ckpt")
+    argv = ["--config", config, "--checkpoint_path", ckpt, "--stdout_interval", "1",
+            "--checkpoint_interval", str(BF16_STEPS), "--validation_interval", "1000",
+            "--training_steps", str(BF16_STEPS), "--device", str(dev)]
+    torch.cuda.reset_peak_memory_stats()
+    launches = mel_kernel.launch_counts["mel_spectrogram"]
+    metrics = []
+    with recorded_steps(metrics):
+        trainer, stats = sr_train.main(argv)
+    loop_launches = mel_kernel.launch_counts["mel_spectrogram"] - launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    h16 = dataclasses.replace(h, **BF16)
+    check(trainer.step == BF16_STEPS and loop_launches == 2 * BF16_STEPS,
+          f"K1 launched {loop_launches} times in {trainer.step} bf16 steps (2 a step)")
+    check(trainer.gen.conv_pre.dtype == torch.bfloat16
+          and trainer.msd.discriminators[0].convs[0].dtype == torch.bfloat16,
+          "the CLI's trainer runs the generator and the discriminators in bf16")
+    masters = {p.dtype for mod in (trainer.gen, trainer.mpd, trainer.msd)
+               for p in mod.parameters()}
+    check(masters == {torch.float32}, f"master params {masters}")
+    g_file = load_checkpoint(os.path.join(ckpt, f"g_{BF16_STEPS:08d}"))["generator"]
+    state = generator_state_dict(g_file, h16)  # reads the JAX layout
+    leaves = sorted({str(v.dtype) for v in state.values()})
+    check(leaves == ["torch.float32"] and all(
+        torch.equal(v, trainer.gen.state_dict()[k].cpu()) for k, v in state.items()),
+          f"the g_ file holds the float32 state in the JAX layout ({leaves})")
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+    check(all(np.isfinite(v) for m in losses for v in m.values()), "finite bf16 losses")
+    del trainer
+    torch.cuda.empty_cache()
+
+    batch = synthetic_batch(h, torch.Generator().manual_seed(21), dev)
+    step1 = {}
+    for name, hh in (("f32", h), ("bf16", h16)):
+        trainer = GANTrainer(hh, device=dev, seed=h.seed)
+        step1[name] = {k: float(v) for k, v in trainer.train_step(batch).items()}
+        del trainer
+        torch.cuda.empty_cache()
+    row = {"ms_per_step_with_data_steps_2_plus": [1e3 * s for s in stats["step_s"][1:]],
+           "first_step_ms": 1e3 * stats["step_s"][0], "peak_gib": peak,
+           "k1_launches_cli": loop_launches, "losses": losses, "g_file_dtypes": leaves,
+           "step1_f32": step1["f32"], "step1_bf16": step1["bf16"]}
+    print("bf16 (b) cli.sr_train", json.dumps(row), flush=True)
+    for k, a in step1["f32"].items():
+        b = step1["bf16"][k]
+        check(abs(a - b) <= 0.05 * abs(a) + 0.05, f"step-1 {k}: bf16 {b} vs f32 {a}")
+    return mel_kernel.launch_counts["mel_spectrogram"] - launches
+
+
+def bf16_phase(h: VocoderConfig, gen_state: dict, dev) -> int:
+    """Phase 11; returns K1's launches in it."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as root:
+        t0 = time.perf_counter()
+        bf16_convert(h, gen_state, root, dev)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        launches = bf16_train(h, os.path.join(root, "train"), dev)
+        print(f"bf16: convert {t1 - t0:.1f} s, train {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2420,9 +2691,11 @@ def main() -> int:
     print(card_name().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "| allow_tf32: cuda.matmul", torch.backends.cuda.matmul.allow_tf32,
-          "cudnn", torch.backends.cudnn.allow_tf32, flush=True)
+          "cudnn", torch.backends.cudnn.allow_tf32, "| bf16 reduced-precision reduction",
+          torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction, flush=True)
     t0 = time.perf_counter()
     mel_kernel._launcher()  # builds csrc/mel_kernel.cu
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2479,12 +2752,21 @@ def main() -> int:
                                       dev)
     print(f"data parallel: phase {time.perf_counter() - t0:.1f} s, K1 launches {dp_launches}",
           flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mel_kernel.reset_launch_counts()
+    bf16_launches = bf16_phase(h, vocoder_trainer.make_models(h, seed=25)[0].state_dict(), dev)
+    check(bf16_launches == mel_kernel.launch_counts["mel_spectrogram"] == 2 * BF16_STEPS + 4,
+          f"K1 launches in the bf16 phase: {bf16_launches}")
+    print(f"bf16: phase {time.perf_counter() - t0:.1f} s, K1 launches {bf16_launches}",
+          flush=True)
 
     kernels = [{"name": "mel_spectrogram", "route": "cuda",
                 "source": "dissc_tpu_torch/csrc/mel_kernel.cu",
                 "replaces": "dissc_tpu/kernels/mel_kernel.py:112",
                 "launches": loop_launches, "launches_gan_steps": launches,
-                "launches_data_parallel": dp_launches,
+                "launches_data_parallel": dp_launches, "launches_bf16": bf16_launches,
                 "max_abs_err": mel_row["max_abs_err"],
                 "grad_max_abs_err": mel_row["grad_max_abs_err"],
                 "ms": mel_row["ms"], "kernel_ms": mel_row["kernel_ms"],

@@ -2,8 +2,8 @@
 
 The package mirrors ``dissc_tpu``'s layout (``core/``, ``audio/``,
 ``data/``, ``kernels/``, ``models/``, ``losses/``, ``train/``,
-``infer/``, ``compat/``, ``parallel/``) so each module's counterpart is
-found by path.
+``infer/``, ``compat/``, ``parallel/``, ``ops/``, ``utils/``) so each
+module's counterpart is found by path.
 It imports ``torch``, ``numpy`` and ``scipy`` only: nothing of JAX and
 nothing of ``dissc_tpu``.
 

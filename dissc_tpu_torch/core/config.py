@@ -5,25 +5,26 @@ A copy of ``dissc_tpu.core.config`` (``AttrDict``, ``load_config``,
 of the JAX package, so the port reads the same ``config.json`` files
 (``sr/configs/{VCTK,ESD}/hubert100_lut.json``).
 
-Knobs of the JAX package fall in three groups here:
+Knobs of the JAX package fall in four groups here:
 
 * reference fields and the ensemble sizes (``mpd_periods``,
   ``msd_scales``): honoured;
 * TPU lowerings with identical numbers (``mrf_pack_max_ch``,
   ``disc_s2d``, ``msd_fused_gstep``, ``dp_axis``): accepted and ignored;
   the port runs the plain formulation;
-* knobs that change the numbers: a ``compute_dtype``,
-  ``disc_compute_dtype`` or ``param_dtype`` other than float32 raises
-  ``NotImplementedError`` at construction (ROADMAP Queue 1, "bf16
-  compute options");
+* the mixed-precision knobs: ``compute_dtype`` (the generator) and
+  ``disc_compute_dtype`` (MPD and MSD) take ``"bfloat16"``, which runs
+  those convolutions in bfloat16 with float32 parameters, as flax's
+  ``dtype`` does (:func:`resolve_dtype`); ``param_dtype`` is accepted
+  and read by nothing, as in the JAX package, so parameters stay float32;
 * the F0-VQ path: ``lambda_commit`` with ``f0_encoder_params`` and
   ``f0_vq_params`` builds ``CodeGenerator``'s quantised-f0 branch;
   ``lambda_commit_code`` raises ``NotImplementedError``, since the JAX
   ``CodeGenerator`` has no code-VQ branch and ignores it.
 
-Reference behaviour mirrored on purpose: ``f0_feats`` is a dead field in
-the reference and in ``dissc_tpu`` alike; it is kept for the schema and
-read by nothing.
+Reference behaviours mirrored on purpose: ``f0_feats`` is a dead field in
+the reference and in ``dissc_tpu`` alike, and ``param_dtype`` in
+``dissc_tpu``; both are kept for the schema and read by nothing.
 """
 from __future__ import annotations
 
@@ -33,7 +34,23 @@ import os
 import shutil
 from typing import Any, Optional, Sequence
 
+import torch
+
 _F32_NAMES = (None, "float32", "f32")
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """A compute-dtype name -> the dtype the convolutions and matmuls run in:
+    ``None``, ``"float32"`` and ``"f32"`` give ``None`` (the plain float32
+    path, as the JAX ``_resolve_dtype``), ``"bfloat16"`` gives
+    ``torch.bfloat16``; any other name raises ``ValueError``."""
+    if name in _F32_NAMES:
+        return None
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {name!r}: the port computes in float32 or bfloat16 "
+                         f"(one of {sorted(_COMPUTE_DTYPES)} or {list(_F32_NAMES)})")
+    return _COMPUTE_DTYPES[name]
 
 
 class AttrDict(dict):
@@ -126,7 +143,8 @@ class VocoderConfig:
 
     # JAX-package knobs.  Ensemble sizes are honoured; the TPU lowerings
     # (dp_axis, mrf_pack_max_ch, disc_s2d, msd_fused_gstep) give the same
-    # numbers as the plain form and are accepted and ignored here.
+    # numbers as the plain form and are accepted and ignored here, as is
+    # param_dtype, which the JAX package reads nowhere (params stay f32).
     dp_axis: str = "data"
     mpd_periods: Sequence[int] = (2, 3, 5, 7, 11)
     msd_scales: int = 3
@@ -141,11 +159,8 @@ class VocoderConfig:
     folded_weights: bool = False
 
     def __post_init__(self):
-        for name in ("compute_dtype", "disc_compute_dtype", "param_dtype"):
-            if getattr(self, name) not in _F32_NAMES:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: the port computes in float32 "
-                    "only (ROADMAP Queue 1: bf16 compute options)")
+        resolve_dtype(self.compute_dtype)
+        resolve_dtype(self.disc_compute_dtype)
         if self.lambda_commit_code:
             raise NotImplementedError(
                 "lambda_commit_code is set: the JAX CodeGenerator has no code-VQ branch "

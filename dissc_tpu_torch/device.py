@@ -7,7 +7,9 @@ on silently on the CPU.
 On the card the port computes in full float32: :func:`resolve_device`
 turns TF32 off for cuBLAS and cuDNN (PyTorch's cuDNN default is TF32,
 which keeps about three decimal digits; the JAX reference runs its DFT
-at ``Precision.HIGHEST``).
+at ``Precision.HIGHEST``).  It also keeps cuBLAS's bfloat16 products
+accumulating in float32 (no bfloat16 reduction of split-K partial
+sums), as XLA accumulates them, for the opt-in bfloat16 compute paths.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             raise RuntimeError(f"{device} requested but CUDA is not available")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return device
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from dissc_tpu_torch.compat.from_jax import len_predictor_state_dict, pitch_predictor_state_dict
+from dissc_tpu_torch.core.masking import length_mask
 from dissc_tpu_torch.core.seqops import (
     dedup_padded,
     dedup_seq,
@@ -70,19 +71,18 @@ def _convert_batch(len_model: Optional[LenPredictor], len_norm_stats: Tuple[floa
     dev = seqs.device
     if len_model is not None:
         vals, _, n_runs = dedup_padded(seqs, lengths, in_cap, n_tokens)
-        run_mask = torch.arange(in_cap, device=dev)[None, :] < n_runs[:, None]
+        run_mask = length_mask(n_runs, in_cap)
         lens_pred = len_model(vals, spk_ids, len_norm_stats, length_mask=run_mask)
         lens_int = len_carryover_correction(lens_pred, run_mask)
         out_seqs, out_lens = repeat_interleave_padded(vals, lens_int, out_cap, n_tokens)
     else:
         n = min(in_cap, out_cap)
         out_seqs = torch.full((B, out_cap), n_tokens, dtype=seqs.dtype, device=dev)
-        valid = torch.arange(n, device=dev)[None, :] < lengths[:, None]
-        out_seqs[:, :n] = torch.where(valid, seqs[:, :n], n_tokens)
+        out_seqs[:, :n] = torch.where(length_mask(lengths, n), seqs[:, :n], n_tokens)
         out_lens = lengths
 
     if pitch_model is not None:
-        out_mask = torch.arange(out_cap, device=dev)[None, :] < out_lens[:, None]
+        out_mask = length_mask(out_lens, out_cap)
         masked_seqs = torch.where(out_mask, out_seqs, n_tokens)
         cls_p, reg_p = pitch_model(masked_seqs, spk_ids, length_mask=out_mask)
         f0 = calc_freq(cls_p, reg_p, spk_ids, id2mean, id2std, norm=norm_pitch)

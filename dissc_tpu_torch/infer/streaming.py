@@ -7,7 +7,9 @@ convolutional, so a sample depends only on codes within its receptive
 field.  The first and last windows sit flush with the signal ends, so
 the convs' zero padding matches the monolithic forward's.  Two window
 shapes in all (``chunk + context`` and ``chunk + 2*context``), and
-device memory independent of the utterance's length.
+device memory independent of the utterance's length.  A bfloat16
+generator (``compute_dtype``) matches its monolithic forward up to
+bfloat16 rounding: the window's shape can change which way a sum rounds.
 """
 from __future__ import annotations
 

@@ -3,7 +3,9 @@
 Behaviour of the JAX engine, on the card:
 
 * weight norm is folded once at construction unless the state is folded
-  already (the reference's ``remove_weight_norm``, ``sr/inference.py:160``);
+  already (the reference's ``remove_weight_norm``, ``sr/inference.py:160``),
+  in float32; with ``compute_dtype`` bfloat16 (``config.json``) the folded
+  weights stay float32 and each conv casts them, as the JAX engine's;
 * utterances are padded to frame buckets ``(64 ... 2048)`` by
   edge-replicating the last code and zero-filling f0; outputs are cut to
   the true length.  With the generator's receptive field the padding

@@ -1,5 +1,8 @@
 """LS-GAN + feature-matching losses (reference ``sr/models.py:352-383``,
-``dissc_tpu.losses.gan``).  Every reduction runs in float32."""
+``dissc_tpu.losses.gan``).  Every reduction runs in float32: each score and
+feature map is cast to float32 before it is reduced, so bfloat16
+discriminators (``disc_compute_dtype``) are reduced as the JAX package's
+``_f32`` reduces them."""
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple

@@ -5,9 +5,16 @@ Inputs are waveforms ``[B, T]``; each sub-discriminator returns its score
 ``[B, N]`` and its per-layer feature maps (NCHW for the MPD, NCW for the
 MSD) for the feature-match loss.  Parameter names are the reference's
 (``discriminators.i.convs.j``, ``discriminators.i.conv_post``).
+
+``dtype`` (the config's ``disc_compute_dtype``) runs every conv in that
+dtype with float32 parameters, as the JAX discriminators' ``dtype``: the
+reflect pad and the average pool act on the float32 waveform, and the
+scores and feature maps come out in ``dtype``; the GAN losses cast each
+to float32 before they reduce.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -27,20 +34,18 @@ class DiscriminatorP(nn.Module):
     caller of the reference turns on its spectral-norm variant."""
 
     def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.period = period
-        norm = "weight"
+        conv = functools.partial(Conv2d, norm="weight", generator=generator, dtype=dtype)
         pad = same_padding(5, 1)
         chans = [1, 32, 128, 512, 1024]
         self.convs = nn.ModuleList(
-            Conv2d(cin, cout, (kernel_size, 1), (stride, 1), (pad, 0), norm=norm,
-                   generator=generator)
+            conv(cin, cout, (kernel_size, 1), (stride, 1), (pad, 0))
             for cin, cout in zip(chans[:-1], chans[1:]))
-        self.convs.append(Conv2d(1024, 1024, (kernel_size, 1), (1, 1), (2, 0), norm=norm,
-                                 generator=generator))
-        self.conv_post = Conv2d(1024, 1, (3, 1), (1, 1), (1, 0), norm=norm,
-                                generator=generator)
+        self.convs.append(conv(1024, 1024, (kernel_size, 1), (1, 1), (2, 0)))
+        self.conv_post = conv(1024, 1, (3, 1), (1, 1), (1, 0))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         b, t = x.shape
@@ -62,9 +67,10 @@ class MultiPeriodDiscriminator(nn.Module):
     """Period discriminators at primes 2,3,5,7,11 (reference ``sr/models.py:263-282``)."""
 
     def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.discriminators = nn.ModuleList(DiscriminatorP(p, generator=generator)
+        self.discriminators = nn.ModuleList(DiscriminatorP(p, generator=generator, dtype=dtype)
                                             for p in periods)
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor
@@ -96,14 +102,14 @@ class DiscriminatorS(nn.Module):
     """Scale discriminator: grouped wide 1D convs (reference ``sr/models.py:285-307``)."""
 
     def __init__(self, use_spectral_norm: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        norm = "spectral" if use_spectral_norm else "weight"
-        self.convs = nn.ModuleList(
-            Conv1d(cin, cout, k, stride=s, groups=g, padding=p, norm=norm,
-                   generator=generator)
-            for cin, cout, k, s, g, p in _MSD_SPECS)
-        self.conv_post = Conv1d(1024, 1, 3, padding=1, norm=norm, generator=generator)
+        conv = functools.partial(Conv1d, norm="spectral" if use_spectral_norm else "weight",
+                                 generator=generator, dtype=dtype)
+        self.convs = nn.ModuleList(conv(cin, cout, k, stride=s, groups=g, padding=p)
+                                   for cin, cout, k, s, g, p in _MSD_SPECS)
+        self.conv_post = conv(1024, 1, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         x = x[:, None]
@@ -121,10 +127,11 @@ class MultiScaleDiscriminator(nn.Module):
     is spectral-normed (reference ``sr/models.py:310-333``).  The pool is
     ``AvgPool1d(4, 2, padding=2)`` with the zero pads counted."""
 
-    def __init__(self, scales: int = 3, generator: Optional[torch.Generator] = None):
+    def __init__(self, scales: int = 3, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.discriminators = nn.ModuleList(
-            DiscriminatorS(use_spectral_norm=(i == 0), generator=generator)
+            DiscriminatorS(use_spectral_norm=(i == 0), generator=generator, dtype=dtype)
             for i in range(scales))
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor

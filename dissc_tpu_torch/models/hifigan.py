@@ -12,6 +12,12 @@ layout (``code [B, T]``, ``f0 [B, Tf, 1]``, ``spkr [B, 1]``) and returns
 The JAX package's space-to-channel packed MRF and waveform head are TPU
 layouts with the same numbers; the port runs the plain MRF.
 
+``compute_dtype="bfloat16"`` runs ``conv_pre``, the upsamplers and the MRF
+blocks in bfloat16 (so their leaky-ReLUs, skip sums and the bank average
+too), with float32 parameters; the activations are cast back to float32
+before ``conv_post``, which runs in float32 with the ``tanh``, so the
+waveform is float32 (``dissc_tpu/models/hifigan.py:186-236``).
+
 With ``lambda_commit`` set, ``CodeGenerator`` quantises its f0 through a
 jukebox ``Encoder`` (``f0_encoder``) and an EMA ``Bottleneck`` (``f0_vq``)
 and returns ``(wav, commit_losses, metrics)``, as the JAX package does
@@ -27,7 +33,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from dissc_tpu_torch.core.config import VocoderConfig
+from dissc_tpu_torch.core.config import VocoderConfig, resolve_dtype
 from dissc_tpu_torch.core.seqops import nearest_upsample
 from dissc_tpu_torch.models.jukebox import Encoder
 from dissc_tpu_torch.models.layers import (Conv1d, ConvTranspose1d, Embed, hifigan_init,
@@ -53,10 +59,11 @@ class ResBlock1(nn.Module):
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 3, 5), norm: Optional[str] = "weight",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         conv = lambda d: Conv1d(channels, channels, kernel_size, dilation=d, norm=norm,
-                                kernel_init=hifigan_init(), generator=generator)
+                                kernel_init=hifigan_init(), generator=generator, dtype=dtype)
         self.convs1 = nn.ModuleList(conv(d) for d in dilations)
         self.convs2 = nn.ModuleList(conv(1) for _ in dilations)
 
@@ -72,11 +79,12 @@ class ResBlock2(nn.Module):
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 3), norm: Optional[str] = "weight",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.convs = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dilation=d, norm=norm,
-                   kernel_init=hifigan_init(), generator=generator)
+                   kernel_init=hifigan_init(), generator=generator, dtype=dtype)
             for d in dilations)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -94,19 +102,23 @@ class Generator(nn.Module):
         self.h = h
         self.num_kernels = len(h.resblock_kernel_sizes)
         wn = None if h.folded_weights else "weight"
+        dtype = resolve_dtype(h.compute_dtype)
         block_cls = ResBlock1 if h.resblock == "1" else ResBlock2
         ch = h.upsample_initial_channel
-        self.conv_pre = Conv1d(h.model_in_dim, ch, 7, padding=3, norm=wn, generator=generator)
+        self.conv_pre = Conv1d(h.model_in_dim, ch, 7, padding=3, norm=wn, generator=generator,
+                               dtype=dtype)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         for i, (u, k) in enumerate(zip(h.upsample_rates, h.upsample_kernel_sizes)):
             out_ch = h.upsample_initial_channel // (2 ** (i + 1))
             self.ups.append(ConvTranspose1d(ch, out_ch, k, u, padding=(k - u) // 2, norm=wn,
-                                            kernel_init=hifigan_init(), generator=generator))
+                                            kernel_init=hifigan_init(), generator=generator,
+                                            dtype=dtype))
             for rk, rd in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes):
                 self.resblocks.append(block_cls(out_ch, rk, tuple(rd), norm=wn,
-                                                generator=generator))
+                                                generator=generator, dtype=dtype))
             ch = out_ch
+        # the waveform head runs in float32 whatever the compute dtype
         self.conv_post = Conv1d(ch, 1, 7, padding=3, norm=wn, kernel_init=hifigan_init(),
                                 generator=generator)
 
@@ -121,7 +133,7 @@ class Generator(nn.Module):
             x = acc / self.num_kernels
         # slope 0.01, not LRELU_SLOPE: the reference's final activation is
         # F.leaky_relu(x) with torch's default (sr/models.py:110)
-        x = leaky_relu(x, 0.01)
+        x = leaky_relu(x, 0.01).float()
         return torch.tanh(self.conv_post(x))[:, 0]
 
 

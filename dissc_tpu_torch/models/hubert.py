@@ -11,10 +11,23 @@ state dict (or one carried from the JAX package by
 ``compat.from_jax.hubert_state_dict``) loads directly; the pos-conv
 weight norm is stored as ``weight_g``/``weight_v``.
 
-Numerics: float32 throughout, plain matmuls, softmax in float32.  Flax's
+Numerics: float32 by default, plain matmuls, softmax in float32.  Flax's
 LayerNorm and GroupNorm take the variance as E[x^2] - E[x]^2 where torch
 takes it about the mean: the two differ at rounding level, and features
 agree with the JAX encoder to 1e-4 (``tests/test_torch_hubert.py``).
+
+``HubertConfig(compute_dtype="bfloat16")`` is flax's mixed precision, as
+the JAX encoder runs it (``dissc_tpu/models/hubert.py:43-177``): every
+conv, every dense layer and the positional conv cast their input, weight
+and bias to bfloat16 and return bfloat16 (the bias added after the
+product; the pos-conv weight norm formed in float32 first); the GELUs
+after them run in bfloat16.  The norms have float32 parameters, so flax
+promotes their output to float32: here their input is cast to float32
+first (torch's norms would return bfloat16), which makes the residual
+stream after each LayerNorm, and the encoder's output, float32.  The
+attention scores are bfloat16, scaled by ``sqrt(head_dim)`` rounded to
+bfloat16 as the JAX encoder's divisor is; the softmax runs in float32
+and its result is cast back.  The k-means argmin always runs in float32.
 """
 from __future__ import annotations
 
@@ -27,15 +40,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dissc_tpu_torch.core.config import resolve_dtype
 from dissc_tpu_torch.device import DeviceLike, resolve_device
+from dissc_tpu_torch.models.layers import conv_in_dtype, rounded_scalar
 
 
 @dataclasses.dataclass(frozen=True)
 class HubertConfig:
     """HuBERT-base by default: conv 512 x 7 (kernels 10,3,3,3,3,2,2, strides
     5,2,2,2,2,2,2), hidden 768, 12 heads, FFN 3072, pos-conv 128 / 16
-    groups, units from layer 6.  The port computes in float32 only:
-    ``compute_dtype`` other than float32 raises."""
+    groups, units from layer 6.  ``compute_dtype``: ``None`` or
+    ``"float32"`` (the default path) or ``"bfloat16"`` (the convs and dense
+    layers in bfloat16, float32 parameters and norms)."""
 
     conv_dim: Sequence[int] = (512, 512, 512, 512, 512, 512, 512)
     conv_kernel: Sequence[int] = (10, 3, 3, 3, 3, 2, 2)
@@ -51,28 +67,57 @@ class HubertConfig:
     compute_dtype: Optional[str] = None
 
     def __post_init__(self):
-        if self.compute_dtype not in (None, "float32", "f32"):
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the port computes in float32 "
-                "only (ROADMAP Queue 1: bf16 compute options)")
+        resolve_dtype(self.compute_dtype)
+
+    @property
+    def dtype(self) -> Optional[torch.dtype]:
+        """The compute dtype, ``None`` for float32."""
+        return resolve_dtype(self.compute_dtype)
 
     @property
     def n_layers_run(self) -> int:
         return min(self.num_layers, self.output_layer)
 
 
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU.  In a low-precision dtype it is formed as the JAX
+    encoder's ``nn.gelu`` forms it, ``0.5 * x * erfc(-x * sqrt(1/2))`` with
+    each operation rounded to that dtype (torch's fused GELU rounds once)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    return 0.5 * x * torch.special.erfc(-x * rounded_scalar(math.sqrt(0.5), x.dtype))
+
+
+def _norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A float32-parameter norm, its output float32 (flax's promotion)."""
+    return norm(x.float())
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``layer(x)``; with a compute dtype, flax's ``Dense(dtype=...)``: the
+    product in ``dtype``, then the bias, cast to it, added."""
+    if dtype is None:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
 class _ConvLayer(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int, norm: bool, eps: float):
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int, norm: bool, eps: float,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv = nn.Conv1d(in_ch, out_ch, k, stride=stride, bias=False)
         # HF GroupNorm with groups == channels: per-channel stats over time
         self.layer_norm = nn.GroupNorm(out_ch, out_ch, eps=eps) if norm else None
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        if self.dtype is None:
+            x = self.conv(x)
+        else:
+            x = conv_in_dtype(F.conv1d, x, self.conv.weight, self.dtype, self.conv.stride)
         if self.layer_norm is not None:
-            x = self.layer_norm(x)
-        return F.gelu(x)
+            x = _norm(self.layer_norm, x)
+        return _gelu(x)
 
 
 class FeatureExtractor(nn.Module):
@@ -84,7 +129,7 @@ class FeatureExtractor(nn.Module):
         super().__init__()
         dims = (1,) + tuple(cfg.conv_dim)
         self.conv_layers = nn.ModuleList(
-            _ConvLayer(dims[i], dims[i + 1], k, s, i == 0, cfg.layer_norm_eps)
+            _ConvLayer(dims[i], dims[i + 1], k, s, i == 0, cfg.layer_norm_eps, cfg.dtype)
             for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)))
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
@@ -99,9 +144,10 @@ class _FeatureProjection(nn.Module):
         super().__init__()
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.dtype = cfg.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.layer_norm(x))
+        return _dense(self.projection, _norm(self.layer_norm, x), self.dtype)
 
 
 class _WeightNormedConv(nn.Module):
@@ -109,17 +155,20 @@ class _WeightNormedConv(nn.Module):
     gain per *kernel position* (torch ``weight_norm(dim=2)`` on the
     ``[out, in/groups, k]`` weight: the norm over out and in/groups)."""
 
-    def __init__(self, ch: int, k: int, groups: int):
+    def __init__(self, ch: int, k: int, groups: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight_g = nn.Parameter(torch.ones(1, 1, k))
         self.weight_v = nn.Parameter(torch.zeros(ch, ch // groups, k))
         self.bias = nn.Parameter(torch.zeros(ch))
-        self.k, self.groups = k, groups
+        self.k, self.groups, self.dtype = k, groups, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         v = self.weight_v
         kernel = self.weight_g * v / torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True) + 1e-12)
-        return F.conv1d(x, kernel, self.bias, padding=self.k // 2, groups=self.groups)
+        if self.dtype is None:
+            return F.conv1d(x, kernel, self.bias, padding=self.k // 2, groups=self.groups)
+        h = conv_in_dtype(F.conv1d, x, kernel, self.dtype, 1, self.k // 2, 1, self.groups)
+        return h + self.bias.to(self.dtype)[:, None]
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -129,19 +178,20 @@ class PositionalConvEmbedding(nn.Module):
 
     def __init__(self, cfg: HubertConfig):
         super().__init__()
-        self.conv = _WeightNormedConv(cfg.hidden_size, cfg.conv_pos_kernel, cfg.conv_pos_groups)
+        self.conv = _WeightNormedConv(cfg.hidden_size, cfg.conv_pos_kernel, cfg.conv_pos_groups,
+                                      cfg.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv(x)
         if self.conv.k % 2 == 0:
             h = h[:, :, :-1]
-        return F.gelu(h)
+        return _gelu(h)
 
 
 class _Attention(nn.Module):
-    def __init__(self, d: int, n_heads: int):
+    def __init__(self, d: int, n_heads: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.n_heads = n_heads
+        self.n_heads, self.dtype = n_heads, dtype
         self.q_proj, self.k_proj = nn.Linear(d, d), nn.Linear(d, d)
         self.v_proj, self.out_proj = nn.Linear(d, d), nn.Linear(d, d)
 
@@ -149,23 +199,26 @@ class _Attention(nn.Module):
         B, T, d = x.shape
         hd = d // self.n_heads
 
-        def heads(z):
-            return z.reshape(B, T, self.n_heads, hd).transpose(1, 2)
+        def heads(layer):
+            return _dense(layer, x, self.dtype).reshape(B, T, self.n_heads, hd).transpose(1, 2)
 
-        q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        ctx = torch.matmul(torch.softmax(scores.float(), dim=-1), v)
-        return self.out_proj(ctx.transpose(1, 2).reshape(B, T, d))
+        q, k, v = heads(self.q_proj), heads(self.k_proj), heads(self.v_proj)
+        # the JAX divisor: sqrt(hd) in the scores' dtype
+        scores = torch.matmul(q, k.transpose(-1, -2)) / rounded_scalar(math.sqrt(hd), q.dtype)
+        ctx = torch.matmul(torch.softmax(scores.float(), dim=-1).to(v.dtype), v)
+        return _dense(self.out_proj, ctx.transpose(1, 2).reshape(B, T, d), self.dtype)
 
 
 class _FeedForward(nn.Module):
-    def __init__(self, d: int, ffn: int):
+    def __init__(self, d: int, ffn: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.intermediate_dense = nn.Linear(d, ffn)
         self.output_dense = nn.Linear(ffn, d)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+        h = _gelu(_dense(self.intermediate_dense, x, self.dtype))
+        return _dense(self.output_dense, h, self.dtype)
 
 
 class TransformerLayer(nn.Module):
@@ -174,14 +227,14 @@ class TransformerLayer(nn.Module):
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         d = cfg.hidden_size
-        self.attention = _Attention(d, cfg.num_heads)
+        self.attention = _Attention(d, cfg.num_heads, cfg.dtype)
         self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.feed_forward = _FeedForward(d, cfg.intermediate_size)
+        self.feed_forward = _FeedForward(d, cfg.intermediate_size, cfg.dtype)
         self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.layer_norm(x + self.attention(x))
-        return self.final_layer_norm(x + self.feed_forward(x))
+        x = _norm(self.layer_norm, x + self.attention(x))
+        return _norm(self.final_layer_norm, x + self.feed_forward(x))
 
 
 class _Encoder(nn.Module):
@@ -193,14 +246,15 @@ class _Encoder(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         h = h + self.pos_conv_embed(h.transpose(1, 2)).transpose(1, 2)
-        h = self.layer_norm(h)
+        h = _norm(self.layer_norm, h)
         for layer in self.layers:
             h = layer(h)
         return h
 
 
 class HubertEncoder(nn.Module):
-    """Waveform ``[B, T]`` -> features ``[B, F, hidden]`` at ``cfg.output_layer``."""
+    """Waveform ``[B, T]`` -> float32 features ``[B, F, hidden]`` at
+    ``cfg.output_layer``."""
 
     def __init__(self, cfg: HubertConfig = HubertConfig()):
         super().__init__()

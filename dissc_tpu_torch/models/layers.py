@@ -21,6 +21,7 @@ all biases the torch conv default ``U(+-1/sqrt(fan_in))``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -33,8 +34,17 @@ LRELU_SLOPE = 0.1  # vocoder/discriminator slope (sr/models.py:13)
 Init = Callable[[Tuple[int, ...], Optional[torch.Generator]], torch.Tensor]
 
 
+@functools.lru_cache(maxsize=None)
+def rounded_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as ``jnp`` rounds a Python scalar that
+    meets an array of that dtype (torch computes with the float32 value)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
-    return F.leaky_relu(x, slope)
+    """Leaky ReLU; on a bfloat16 ``x`` the slope is first rounded to
+    bfloat16 (:func:`rounded_scalar`), as in the JAX package."""
+    return F.leaky_relu(x, rounded_scalar(slope, x.dtype))
 
 
 def torch_conv_init(fan_in: int) -> Init:
@@ -61,6 +71,21 @@ def same_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
 
 
+def conv_in_dtype(fn: Callable[..., torch.Tensor], x: torch.Tensor, weight: torch.Tensor,
+                  dtype: torch.dtype, *args) -> torch.Tensor:
+    """``fn(x, weight, None, *args)`` with both operands and the result in
+    ``dtype``.  On the card the conv runs in ``dtype`` (cuDNN accumulates in
+    float32).  On the CPU it is the float32 conv of the ``dtype``-rounded
+    operands, rounded once, which is what XLA's CPU backend computes:
+    oneDNN's own bfloat16 grouped convs return wrong sums on the CPU for
+    some group widths (12 or 4 channels a group at kernels of 8 and more,
+    PyTorch 2.13)."""
+    x, weight = x.to(dtype), weight.to(dtype)
+    if x.device.type == "cpu":
+        return fn(x.float(), weight.float(), None, *args).to(dtype)
+    return fn(x, weight, None, *args)
+
+
 def weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``g * v / ||v||`` with the norm over every dim but 0."""
     dims = tuple(range(1, v.dim()))
@@ -72,11 +97,12 @@ class _NormedWeight(nn.Module):
 
     def __init__(self, shape: Sequence[int], fan_in: int, norm: Optional[str],
                  kernel_init: Optional[Init], bias: bool, bias_size: int,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], dtype: Optional[torch.dtype] = None):
         super().__init__()
         if norm not in (None, "weight", "spectral"):
             raise ValueError(f"norm must be None, 'weight' or 'spectral', got {norm!r}")
         self.norm = norm
+        self.dtype = dtype
         w = (kernel_init or torch_conv_init(fan_in))(tuple(shape), generator)
         if norm == "weight":
             self.weight_v = nn.Parameter(w)
@@ -89,6 +115,15 @@ class _NormedWeight(nn.Module):
             self.weight = nn.Parameter(w)
         self.bias = (nn.Parameter(torch_conv_init(fan_in)((bias_size,), generator))
                      if bias else None)
+
+    def _conv(self, fn: Callable[..., torch.Tensor], x: torch.Tensor, *args) -> torch.Tensor:
+        """``fn(x, kernel, bias, *args)``, in the compute dtype when there is one."""
+        if self.dtype is None:
+            return fn(x, self.kernel(), self.bias, *args)
+        y = conv_in_dtype(fn, x, self.kernel(), self.dtype, *args)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.dtype).reshape(-1, *([1] * (y.dim() - 2)))
 
     def kernel(self) -> torch.Tensor:
         if self.norm == "weight":
@@ -120,23 +155,24 @@ class _NormedWeight(nn.Module):
 class Conv1d(_NormedWeight):
     """1D convolution, NCW, optional weight or spectral norm.
 
-    ``padding=None`` is 'same' for the (kernel, dilation).
+    ``padding=None`` is 'same' for the (kernel, dilation); ``dtype`` is
+    the compute dtype (``None``: float32).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
                  padding: Optional[int] = None, bias: bool = True,
                  norm: Optional[str] = None, kernel_init: Optional[Init] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         fan_in = (in_channels // groups) * kernel_size
         super().__init__((out_channels, in_channels // groups, kernel_size), fan_in,
-                         norm, kernel_init, bias, out_channels, generator)
+                         norm, kernel_init, bias, out_channels, generator, dtype)
         self.stride, self.dilation, self.groups = stride, dilation, groups
         self.padding = same_padding(kernel_size, dilation) if padding is None else padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.kernel(), self.bias, self.stride, self.padding,
-                        self.dilation, self.groups)
+        return self._conv(F.conv1d, x, self.stride, self.padding, self.dilation, self.groups)
 
 
 class ConvTranspose1d(_NormedWeight):
@@ -150,14 +186,15 @@ class ConvTranspose1d(_NormedWeight):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int = 0, bias: bool = True,
                  norm: Optional[str] = None, kernel_init: Optional[Init] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         fan_in = in_channels * kernel_size
         super().__init__((in_channels, out_channels, kernel_size), fan_in, norm,
-                         kernel_init, bias, out_channels, generator)
+                         kernel_init, bias, out_channels, generator, dtype)
         self.stride, self.padding = stride, padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.kernel(), self.bias, self.stride, self.padding)
+        return self._conv(F.conv_transpose1d, x, self.stride, self.padding)
 
 
 class Conv2d(_NormedWeight):
@@ -168,15 +205,16 @@ class Conv2d(_NormedWeight):
                  kernel_size: Tuple[int, int], stride: Tuple[int, int] = (1, 1),
                  padding: Tuple[int, int] = (0, 0), bias: bool = True,
                  norm: Optional[str] = None, kernel_init: Optional[Init] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         kh, kw = kernel_size
         fan_in = in_channels * kh * kw
         super().__init__((out_channels, in_channels, kh, kw), fan_in, norm,
-                         kernel_init, bias, out_channels, generator)
+                         kernel_init, bias, out_channels, generator, dtype)
         self.stride, self.padding = tuple(stride), tuple(padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.kernel(), self.bias, self.stride, self.padding)
+        return self._conv(F.conv2d, x, self.stride, self.padding)
 
 
 def fold_weight_norm(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -16,6 +16,10 @@ step and the reference.
 
 Both optimizers are ``torch.optim.AdamW(lr, (b1, b2), eps=1e-8,
 weight_decay=0.01)``, which is ``optax.adamw(..., weight_decay=0.01)``.
+With ``compute_dtype`` / ``disc_compute_dtype`` bfloat16 the generator's
+and the discriminators' convs run in bfloat16 while the parameters, their
+gradients and the optimizer states stay float32 (flax's mixed precision);
+the waveform, the mel loss and every loss reduction are float32.
 The mel function is picked by config, as ``_pick_mel_fn`` picks: on the
 card with ``hop | n_fft`` and ``win <= n_fft`` it is the fused kernel
 (:func:`~dissc_tpu_torch.kernels.mel_kernel.mel_spectrogram_grad`, two
@@ -73,7 +77,7 @@ from dissc_tpu_torch.audio.mel import mel_spectrogram
 from dissc_tpu_torch.compat.from_jax import (generator_state_dict, mpd_state_dict,
                                              msd_state_dict)
 from dissc_tpu_torch.compat.to_jax import generator_tree, mpd_tree, msd_trees
-from dissc_tpu_torch.core.config import VocoderConfig
+from dissc_tpu_torch.core.config import VocoderConfig, resolve_dtype
 from dissc_tpu_torch.data.code_dataset import CodeDataset, get_dataset_filelist
 from dissc_tpu_torch.data.stats import load_f0_stats, save_id_to_spkr
 from dissc_tpu_torch.device import DeviceLike, generator_for, resolve_device
@@ -96,11 +100,14 @@ PREFETCH_DEPTH = 2  # batches the host thread runs ahead of the loop
 
 def make_models(h: VocoderConfig, seed: Optional[int] = None
                 ) -> Tuple[CodeGenerator, MultiPeriodDiscriminator, MultiScaleDiscriminator]:
-    """Generator, MPD and MSD with weights drawn from one seeded generator."""
+    """Generator, MPD and MSD with weights drawn from one seeded generator;
+    the discriminators compute in ``h.disc_compute_dtype``."""
     g = generator_for(h.seed if seed is None else seed)
+    ddt = resolve_dtype(h.disc_compute_dtype)
     return (CodeGenerator(h, generator=g),
-            MultiPeriodDiscriminator(tuple(h.mpd_periods or (2, 3, 5, 7, 11)), generator=g),
-            MultiScaleDiscriminator(int(h.msd_scales or 3), generator=g))
+            MultiPeriodDiscriminator(tuple(h.mpd_periods or (2, 3, 5, 7, 11)), generator=g,
+                                     dtype=ddt),
+            MultiScaleDiscriminator(int(h.msd_scales or 3), generator=g, dtype=ddt))
 
 
 def pick_mel_fn(h: VocoderConfig, device: torch.device) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -120,7 +120,3 @@ def test_speech_unit_encoder_and_loader_match_jax(tmp_path):
     # f0 frames of 5 ms) have f0 to take; the tone is tracked there
     assert (ref_f0[:10] > 0).mean() > 0.7
 
-
-def test_bf16_compute_raises():
-    with pytest.raises(NotImplementedError, match="float32"):
-        thub.HubertConfig(compute_dtype="bfloat16")

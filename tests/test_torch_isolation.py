@@ -35,7 +35,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package(tmp_path):
                  "models.kmeans", "eval.sv", "cli.eval_sv", "cli.convert_eval_sv",
                  "train.quantizer_trainer", "compat.torch_import", "compat.from_jax",
                  "parallel.distributed", "parallel.collectives", "parallel.mesh",
-                 "parallel.dryrun"):
+                 "parallel.dryrun", "core.masking", "utils", "utils.profiling", "ops"):
         assert f"dissc_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -191,10 +191,7 @@ def test_native_binding_raises_when_its_build_fails(binding, monkeypatch, tmp_pa
     assert not (tmp_path / "build").exists() or not list((tmp_path / "build").iterdir())
 
 
-@pytest.mark.parametrize("knob", [dict(compute_dtype="bfloat16"),
-                                  dict(disc_compute_dtype="bfloat16"),
-                                  dict(param_dtype="bfloat16"),
-                                  dict(lambda_commit_code=0.02)])
+@pytest.mark.parametrize("knob", [dict(lambda_commit_code=0.02)])
 def test_config_refuses_knobs_that_change_the_numbers(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VocoderConfig(**knob)

@@ -40,14 +40,14 @@ from dissc_tpu_torch.compat.to_jax import len_predictor_variables, pitch_predict
 from dissc_tpu_torch.core.config import ProsodyConfig
 from dissc_tpu_torch.infer import prosody as tinfer
 from dissc_tpu_torch.losses import len_loss as tlen
-from dissc_tpu_torch.losses import pitch_loss as tpitch
 from dissc_tpu_torch.models.prosody import LenPredictor, _mask_embeddings
 from dissc_tpu_torch.train import prosody_trainer as ttrain
 from test_torch_prosody import random_variables
 
-# the JAX losses package re-exports functions under its modules' names
+# both losses packages re-export functions under their modules' names
 jlen = importlib.import_module("dissc_tpu.losses.len_loss")
 jpitch = importlib.import_module("dissc_tpu.losses.pitch_loss")
+tpitch = importlib.import_module("dissc_tpu_torch.losses.pitch_loss")
 
 torch.set_num_threads(2)
 N_SPK, B, L = 5, 4, 24
