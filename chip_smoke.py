@@ -118,6 +118,26 @@ HuBERT-base, with weights drawn from a fixed seed:
    JAX layout; then one ``GANTrainer`` step in float32 and in bfloat16
    from one init and one batch, each loss within 0.05 |f32| + 0.05.
 
+12. the model axis and the fused MSD G step, with the launch counters set
+   to 0 just before and read just after (the ranks count their own): (a)
+   through ``parallel/dryrun.py``, the GAN step at ``VocoderConfig()``
+   width, global batch 32 (cut from 64: each rank of a model group holds
+   all of its data shard's rows), 3 SGD steps, cuDNN deterministic: plain
+   at W = 1 (and again on cuDNN's heuristics, for the spread), then
+   ``--shard tp --model 2`` at W = 2 (data 1 x model 2) and W = 4 (data 2 x
+   model 2), gloo with the ranks sharing the card (NCCL where there is a
+   card a rank); the gathered generator, MPD, MSD and losses within 2e-5 of
+   the plain step after step 1 and within 8 x its spread after 3, each
+   rank's ms a step, peak GiB, model-group collective ms, K1 twice a step
+   and the largest gap between the model ranks' replicated parameters
+   (0); (b) ``GANTrainer`` at ``VocoderConfig()``, batch 64, 3 steps from
+   one seed and batch with ``msd_fused_gstep`` off and then on, in float32
+   and in bfloat16 (``disc_compute_dtype``), cuDNN deterministic: ms a step
+   and peak GiB of each, and of the MSD's G-step terms alone, the fused
+   generator gradient and spectral ``u``
+   after step 1 within 1e-5 of the plain step's (relative L2) in float32
+   and within half of the plain step's bf16-vs-f32 distance in bfloat16.
+
 It exits non-zero on any failure and without a card.  The line before
 the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -151,7 +171,7 @@ from dissc_tpu_torch.audio.resample import resample_poly_np
 from dissc_tpu_torch.cli import sr_train, train_f0, train_len
 from dissc_tpu_torch.compat.from_jax import generator_state_dict
 from dissc_tpu_torch.core import seqops
-from dissc_tpu_torch.core.config import ProsodyConfig, VocoderConfig
+from dissc_tpu_torch.core.config import ProsodyConfig, VocoderConfig, resolve_dtype
 from dissc_tpu_torch.core.wav import write_wav
 from dissc_tpu_torch.data import native_loader
 from dissc_tpu_torch.data.stats import load_f0_stats, load_id_to_spkr, prep_stats_arrays
@@ -160,7 +180,10 @@ from dissc_tpu_torch.infer.prosody import ProsodyConverter
 from dissc_tpu_torch.infer.streaming import receptive_field_frames
 from dissc_tpu_torch.infer.vocoder import VocoderEngine
 from dissc_tpu_torch.kernels import mel_kernel
+from dissc_tpu_torch.losses.gan import feature_loss, generator_loss
+from dissc_tpu_torch.models.discriminators import MultiScaleDiscriminator
 from dissc_tpu_torch.models.hubert import HubertConfig, SpeechUnitEncoder, init_state_dict
+from dissc_tpu_torch.models.msd_fused import fold_msd_weights, msd_g_apply
 from dissc_tpu_torch.models.prosody import LenPredictor
 from dissc_tpu_torch.parallel.mesh import world_for_batch
 from dissc_tpu_torch.pipeline import ConversionPipeline
@@ -2684,6 +2707,176 @@ def bf16_phase(h: VocoderConfig, gen_state: dict, dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 12. the model axis (tensor parallelism) and the fused MSD G step
+# ---------------------------------------------------------------------------
+
+# (a) each rank of a model group holds all of its data shard's rows: at the
+# plain step's batch of 64 (37.48 GiB at W = 1, PERF.md) two ranks on one
+# card would not fit, so the grid's global batch is cut to 32
+TP_BATCH = 32
+TP_ARGS = ["--device", "cuda", "--width", "full", "--batch", str(TP_BATCH), "--steps",
+           str(DP_STEPS), "--deterministic"]
+FUSED_STEPS = 3
+FUSED_F32_REL = 1e-5  # (b): the fused generator gradient vs autograd's, relative L2
+
+
+def tensor_parallel_steps(root: str) -> int:
+    """(a): the GAN step at ``VocoderConfig()``, global batch ``TP_BATCH``,
+    ``DP_STEPS`` SGD steps, cuDNN deterministic: plain (W = 1, with its
+    heuristic-algorithm repeat for the spread), then ``--shard tp --model 2``
+    at W = 2 (data 1 x model 2) and W = 4 (data 2 x model 2), gloo with the
+    ranks sharing the card (NCCL where there is a card a rank); the gathered
+    generator, MPD, MSD and the losses held to the plain step as phase 10
+    holds W = 2; returns K1's launches over the runs."""
+    plain, plain_s = dryrun(f"{root}/tp_plain.npz", "--phase", "gan", "--world", "1",
+                            "--backend", "none", "--control", *TP_ARGS)
+    spread, spread_key, limit = spread_limit(plain)
+    smi = card_name()
+    print("model axis (a) plain W=1", json.dumps(dict(
+        gan_row(plain, plain_s), card=smi, batch=TP_BATCH,
+        spread_heuristic_vs_deterministic=spread, spread_worst=spread_key,
+        limit_after_steps=limit)), flush=True)
+    launches = int(plain["gan/k1_launches"].sum())
+    for world in (2, 4):
+        backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+        run, wall = dryrun(f"{root}/tp{world}.npz", "--phase", "gan", "--shard", "tp", "--model",
+                           "2", "--world", str(world), "--backend", backend, *TP_ARGS)
+        step1_err, step1_key = worst_diff(run, plain, "gan/step1/")
+        top = diffs(run, plain, "gan/final/")
+        loss_rel = float(np.max(np.abs(run["gan/losses"] - plain["gan/losses"])
+                                / np.abs(plain["gan/losses"])))
+        ms, model_ms = run["gan/ms_per_step"], run["gan/model_comm_ms"]
+        gap = run["gan/replicated_gap"].tolist()
+        row = dict(gan_row(run, wall), card=smi, world=world, grid=[world // 2, 2],
+                   backend=backend, batch=TP_BATCH, sharded=run["gan/sharded"].tolist(),
+                   model_comm_ms=model_ms.tolist(),
+                   model_comm_share_2_plus=float(model_ms[:, 1:].sum() / ms[:, 1:].sum()),
+                   replicated_gap=gap, params_max_abs_err_vs_plain_step_1=step1_err,
+                   worst_step_1=step1_key, params_max_abs_err_vs_plain=top[0][0],
+                   worst=top[0][1], largest_five=top[:5], limit_after_steps=limit,
+                   losses_max_rel_err_vs_plain=loss_rel)
+        print(f"model axis (a) tp W={world}", json.dumps(row), flush=True)
+        check(len(row["sharded"]) == 4, f"the rule split {row['sharded']}")
+        check(step1_err <= 2e-5, f"tp W={world} vs plain after step 1: {step1_err} at {step1_key}")
+        check(top[0][0] <= limit, f"tp W={world} vs plain after {DP_STEPS} steps: {top[0][0]} at "
+                                  f"{top[0][1]}, limit {limit}")
+        check(loss_rel <= 1e-4, f"tp W={world} losses vs plain: relative {loss_rel}")
+        check(gap == [0.0] * world, f"tp W={world}: replicated parameters part by {gap}")
+        check(run["gan/k1_launches"].tolist() == [2 * DP_STEPS] * world,
+              f"K1 launches at tp W={world}: {run['gan/k1_launches'].tolist()}")
+        launches += int(run["gan/k1_launches"].sum())
+    return launches
+
+
+def _gen_grad(trainer: GANTrainer) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1) for p in trainer.gen.parameters()])
+
+
+def _msd_u(trainer: GANTrainer) -> torch.Tensor:
+    return torch.cat([b.reshape(-1) for n, b in trainer.msd.named_buffers()
+                      if n.endswith("weight_u")])
+
+
+def msd_g_peak_gib(h: VocoderConfig, dev: torch.device, dtype: str, fused: bool) -> float:
+    """GiB the MSD's G-step terms alone (forward, then the gradient for
+    ``y_hat``) take above their inputs at ``h``'s batch: the plain module or
+    the fused stack, ``msd_scales`` scales in ``dtype``."""
+    msd = MultiScaleDiscriminator(int(h.msd_scales), generator=torch.Generator().manual_seed(27),
+                                  dtype=resolve_dtype(dtype)).to(dev)
+    msd.requires_grad_(False)
+    g = torch.Generator().manual_seed(28)
+    y, y_hat = (torch.randn((h.batch_size, h.segment_size), generator=g).mul(0.3).to(dev)
+                for _ in range(2))
+    y_hat.requires_grad_(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = (msd_g_apply(fold_msd_weights(msd, True, resolve_dtype(dtype)), y, y_hat) if fused
+           else msd(y, y_hat))
+    (generator_loss(out[1])[0] + feature_loss(out[2], out[3])).backward()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del msd, out, y, y_hat
+    torch.cuda.empty_cache()
+    return peak
+
+
+def fused_msd_steps(h: VocoderConfig, dev: torch.device) -> int:
+    """(b): ``GANTrainer`` at ``h``'s width and batch, ``FUSED_STEPS`` steps
+    from one seed and batch with ``msd_fused_gstep`` off, then on, in float32
+    and in bfloat16 (``disc_compute_dtype``), cuDNN deterministic; the fused
+    generator gradient and spectral ``u`` after step 1 against the plain
+    step's: within ``FUSED_F32_REL`` (relative L2) in float32, within half of
+    the plain step's own bf16-vs-f32 gradient distance (the bound of
+    ``tests/test_torch_bf16_vocoder.py``) in bfloat16; returns K1's
+    launches."""
+    batch = synthetic_batch(h, torch.Generator().manual_seed(26), dev)
+    fused_calls = []
+    real = vocoder_trainer.msd_g_apply
+    runs, launches = {}, mel_kernel.launch_counts["mel_spectrogram"]
+    with card_math(deterministic=True), contextlib.ExitStack() as stack:
+        stack.callback(setattr, vocoder_trainer, "msd_g_apply", real)
+        vocoder_trainer.msd_g_apply = lambda *a: fused_calls.append(1) or real(*a)
+        for dtype in ("float32", "bfloat16"):
+            for fused in (False, True):
+                hh = dataclasses.replace(h, msd_fused_gstep=fused, disc_compute_dtype=dtype)
+                trainer = GANTrainer(hh, device=dev, seed=h.seed)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                calls, ms = len(fused_calls), []
+                for step in range(FUSED_STEPS):
+                    t0 = time.perf_counter()
+                    metrics = trainer.train_step(batch)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                    if step == 0:
+                        grad, u = _gen_grad(trainer).clone(), _msd_u(trainer).clone()
+                        losses = {k: float(v) for k, v in metrics.items()}
+                check(len(fused_calls) - calls == (FUSED_STEPS if fused else 0),
+                      f"the fused MSD ran {len(fused_calls) - calls} times, fused={fused}")
+                runs[(dtype, fused)] = dict(grad=grad, u=u, ms=ms, losses=losses,
+                                            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                del trainer
+                torch.cuda.empty_cache()
+    rel = lambda a, b: float(torch.linalg.vector_norm((a - b).double())
+                             / torch.linalg.vector_norm(b.double()))
+    bf16_gap = rel(runs[("bfloat16", False)]["grad"], runs[("float32", False)]["grad"])
+    smi = card_name()
+    for dtype, bound in (("float32", FUSED_F32_REL), ("bfloat16", 0.5 * bf16_gap)):
+        plain, fused = runs[(dtype, False)], runs[(dtype, True)]
+        row = {"card": smi, "dtype": dtype, "batch": h.batch_size, "deterministic": True,
+               "ms_per_step_plain": plain["ms"], "ms_per_step_fused": fused["ms"],
+               "peak_gib_plain": plain["peak_gib"], "peak_gib_fused": fused["peak_gib"],
+               "msd_g_terms_peak_gib_plain": msd_g_peak_gib(h, dev, dtype, False),
+               "msd_g_terms_peak_gib_fused": msd_g_peak_gib(h, dev, dtype, True),
+               "grad_rel_l2_fused_vs_plain": rel(fused["grad"], plain["grad"]),
+               "u_rel_l2_fused_vs_plain": rel(fused["u"], plain["u"]), "bound": bound,
+               "plain_bf16_vs_f32_grad_rel_l2": bf16_gap,
+               "losses_step_1_plain": plain["losses"], "losses_step_1_fused": fused["losses"]}
+        print(f"model axis (b) fused MSD G step, {dtype}", json.dumps(row), flush=True)
+        check(row["grad_rel_l2_fused_vs_plain"] <= bound,
+              f"{dtype} fused generator gradient vs plain: {row['grad_rel_l2_fused_vs_plain']}, "
+              f"bound {bound}")
+        check(row["u_rel_l2_fused_vs_plain"] <= bound,
+              f"{dtype} fused spectral u vs plain: {row['u_rel_l2_fused_vs_plain']}, bound {bound}")
+    launched = mel_kernel.launch_counts["mel_spectrogram"] - launches
+    check(launched == 2 * FUSED_STEPS * len(runs), f"K1 launched {launched} times in (b)")
+    return launched
+
+
+def model_axis_phase(h: VocoderConfig, dev: torch.device) -> int:
+    """Phase 12; returns K1's launches over its runs (every rank's)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as root:
+        t0 = time.perf_counter()
+        launches = tensor_parallel_steps(root)
+        t1 = time.perf_counter()
+        launches += fused_msd_steps(h, dev)
+        print(f"model axis: tp {t1 - t0:.1f} s, fused MSD {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2761,12 +2954,21 @@ def main() -> int:
           f"K1 launches in the bf16 phase: {bf16_launches}")
     print(f"bf16: phase {time.perf_counter() - t0:.1f} s, K1 launches {bf16_launches}",
           flush=True)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mel_kernel.reset_launch_counts()
+    tp_launches = model_axis_phase(h, dev)
+    check(tp_launches > 0, "the model-axis phase launched K1")
+    print(f"model axis: phase {time.perf_counter() - t0:.1f} s, K1 launches {tp_launches}",
+          flush=True)
 
     kernels = [{"name": "mel_spectrogram", "route": "cuda",
                 "source": "dissc_tpu_torch/csrc/mel_kernel.cu",
                 "replaces": "dissc_tpu/kernels/mel_kernel.py:112",
                 "launches": loop_launches, "launches_gan_steps": launches,
                 "launches_data_parallel": dp_launches, "launches_bf16": bf16_launches,
+                "launches_model_axis": tp_launches,
                 "max_abs_err": mel_row["max_abs_err"],
                 "grad_max_abs_err": mel_row["grad_max_abs_err"],
                 "ms": mel_row["ms"], "kernel_ms": mel_row["kernel_ms"],

@@ -28,6 +28,15 @@ _CONV1D = (2, 1, 0)      # (out, in, k) -> (k, in, out); (in, out, k) -> (k, out
 _CONV2D = (2, 3, 1, 0)   # (out, in, kh, kw) -> (kh, kw, in, out)
 
 
+def generator_flax_shape(shape) -> Tuple[int, ...]:
+    """The shape :func:`generator_tree` writes for a generator tensor of
+    ``shape``: a conv kernel (``(out, in, k)``, or ``(in, out, k)`` for a
+    transposed conv) or weight-norm gain (``(C, 1, 1)``) in the flax layout,
+    so its last dimension is the output channels of a conv and the input
+    channels of a transposed conv; an embedding or a bias as it is."""
+    return tuple(shape[i] for i in _CONV1D) if len(shape) == 3 else tuple(shape)
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy().copy()
 

@@ -9,9 +9,12 @@ Knobs of the JAX package fall in four groups here:
 
 * reference fields and the ensemble sizes (``mpd_periods``,
   ``msd_scales``): honoured;
-* TPU lowerings with identical numbers (``mrf_pack_max_ch``,
-  ``disc_s2d``, ``msd_fused_gstep``, ``dp_axis``): accepted and ignored;
-  the port runs the plain formulation;
+* ``msd_fused_gstep``: the G step runs the MSD through the fused stack of
+  ``models/msd_fused.py`` (same forward, a backward for the waveform that
+  keeps no pre-activation maps), as the JAX step does;
+* layouts for the TPU's registers with the plain form's numbers
+  (``mrf_pack_max_ch``, ``disc_s2d``, ``dp_axis``): accepted and ignored;
+  the port's cuDNN convs are their counterpart;
 * the mixed-precision knobs: ``compute_dtype`` (the generator) and
   ``disc_compute_dtype`` (MPD and MSD) take ``"bfloat16"``, which runs
   those convolutions in bfloat16 with float32 parameters, as flax's
@@ -141,8 +144,8 @@ class VocoderConfig:
     f0_quantizer_path: Optional[str] = None
     f0_quantizer: Optional[dict] = None
 
-    # JAX-package knobs.  Ensemble sizes are honoured; the TPU lowerings
-    # (dp_axis, mrf_pack_max_ch, disc_s2d, msd_fused_gstep) give the same
+    # JAX-package knobs.  Ensemble sizes and msd_fused_gstep are honoured;
+    # the TPU layouts (dp_axis, mrf_pack_max_ch, disc_s2d) give the same
     # numbers as the plain form and are accepted and ignored here, as is
     # param_dtype, which the JAX package reads nowhere (params stay f32).
     dp_axis: str = "data"

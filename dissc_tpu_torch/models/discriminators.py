@@ -87,7 +87,8 @@ class MultiPeriodDiscriminator(nn.Module):
 
 
 # (in, out, kernel, stride, groups, padding) per conv of a scale discriminator
-_MSD_SPECS = [
+# (reference sr/models.py:287-300), and of its conv_post
+MSD_SPECS = (
     (1, 128, 15, 1, 1, 7),
     (128, 128, 41, 2, 4, 20),
     (128, 256, 41, 2, 16, 20),
@@ -95,7 +96,8 @@ _MSD_SPECS = [
     (512, 1024, 41, 4, 16, 20),
     (1024, 1024, 41, 1, 16, 20),
     (1024, 1024, 5, 1, 1, 2),
-]
+)
+MSD_POST = (1024, 1, 3, 1, 1, 1)
 
 
 class DiscriminatorS(nn.Module):
@@ -108,8 +110,9 @@ class DiscriminatorS(nn.Module):
         conv = functools.partial(Conv1d, norm="spectral" if use_spectral_norm else "weight",
                                  generator=generator, dtype=dtype)
         self.convs = nn.ModuleList(conv(cin, cout, k, stride=s, groups=g, padding=p)
-                                   for cin, cout, k, s, g, p in _MSD_SPECS)
-        self.conv_post = conv(1024, 1, 3, padding=1)
+                                   for cin, cout, k, s, g, p in MSD_SPECS)
+        cin, cout, k, s, g, p = MSD_POST
+        self.conv_post = conv(cin, cout, k, stride=s, groups=g, padding=p)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         x = x[:, None]

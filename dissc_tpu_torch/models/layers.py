@@ -86,6 +86,18 @@ def conv_in_dtype(fn: Callable[..., torch.Tensor], x: torch.Tensor, weight: torc
     return fn(x, weight, None, *args)
 
 
+def conv_with(fn: Callable[..., torch.Tensor], x: torch.Tensor, kernel: torch.Tensor,
+              bias: Optional[torch.Tensor], dtype: Optional[torch.dtype], *args) -> torch.Tensor:
+    """``fn(x, kernel, bias, *args)``; with a compute ``dtype``, the conv in
+    that dtype (:func:`conv_in_dtype`) and then the bias in it."""
+    if dtype is None:
+        return fn(x, kernel, bias, *args)
+    y = conv_in_dtype(fn, x, kernel, dtype, *args)
+    if bias is None:
+        return y
+    return y + bias.to(dtype).reshape(-1, *([1] * (y.dim() - 2)))
+
+
 def weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``g * v / ||v||`` with the norm over every dim but 0."""
     dims = tuple(range(1, v.dim()))
@@ -118,12 +130,7 @@ class _NormedWeight(nn.Module):
 
     def _conv(self, fn: Callable[..., torch.Tensor], x: torch.Tensor, *args) -> torch.Tensor:
         """``fn(x, kernel, bias, *args)``, in the compute dtype when there is one."""
-        if self.dtype is None:
-            return fn(x, self.kernel(), self.bias, *args)
-        y = conv_in_dtype(fn, x, self.kernel(), self.dtype, *args)
-        if self.bias is None:
-            return y
-        return y + self.bias.to(self.dtype).reshape(-1, *([1] * (y.dim() - 2)))
+        return conv_with(fn, x, self.kernel(), self.bias, self.dtype, *args)
 
     def kernel(self) -> torch.Tensor:
         if self.norm == "weight":
@@ -132,12 +139,13 @@ class _NormedWeight(nn.Module):
             return self._spectral_normalize()
         return self.weight
 
-    def _spectral_normalize(self) -> torch.Tensor:
-        """One power-iteration step on W reshaped to [out, in*k] (train mode
-        only); always divides by the current sigma estimate."""
+    def _spectral_normalize(self, train: Optional[bool] = None) -> torch.Tensor:
+        """One power-iteration step on W reshaped to [out, in*k] (train mode,
+        or ``train=True``, only); always divides by the current sigma
+        estimate."""
         w_orig = self.weight_orig
         w = w_orig.reshape(w_orig.shape[0], -1)
-        if self.training:
+        if self.training if train is None else train:
             with torch.no_grad():
                 v = w.t() @ self.weight_u
                 v = v / (torch.linalg.vector_norm(v) + 1e-12)

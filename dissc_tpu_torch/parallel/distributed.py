@@ -16,12 +16,18 @@ leaves checkpoints and logs to rank 0; the JAX package calls
   (or ``tcp://127.0.0.1:<port>`` when a port is given), never a fixed port;
   :func:`run` picks between torchrun's rank, one process and
   :func:`launch` for the training CLIs;
+* :func:`grid` places this rank on the ``data`` x ``model`` grid
+  (``create_mesh(n_data, n_model)``) and builds its two groups: the data
+  group (the ranks that share its model index; gradients average over it)
+  and the model group (the ranks that share its data index; a sharded
+  layer's activations reduce over it);
 * :func:`is_coordinator`, :func:`rank`, :func:`world_size`,
   :func:`global_device_count` and :func:`local_device_count` answer as the
   JAX functions do, and as one process on one device without a group.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import tempfile
@@ -31,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from dissc_tpu_torch.device import DeviceLike, resolve_device
+from dissc_tpu_torch.parallel.mesh import grid_groups, grid_position
 
 TIMEOUT = datetime.timedelta(minutes=10)  # a rank that waits longer raises
 
@@ -106,6 +113,43 @@ def initialize(device: DeviceLike = None, backend: Optional[str] = None,
     if int(probe.item()) != world_size:
         raise RuntimeError(f"the group's first all-reduce gave {probe.item()}, not {world_size}")
     return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A rank's place on the ``n_data`` x ``n_model`` grid and its groups.
+    ``data_group`` is ``None`` without a process group; ``model_group`` is
+    ``None`` when ``n_model`` is 1, so a one-rank model group does no
+    collective."""
+
+    n_data: int = 1
+    n_model: int = 1
+    data_index: int = 0
+    model_index: int = 0
+    data_group: Any = None
+    model_group: Any = None
+
+
+LOCAL = Grid()  # one process, no group: the plain step
+
+
+def grid(n_model: int = 1) -> Grid:
+    """This rank's :class:`Grid` under the current process group (``LOCAL``
+    without one).  With ``n_model`` 1 the data group is the whole world, as
+    the data-parallel path has it; otherwise every rank creates every data
+    and model group, in one order, and keeps its own two."""
+    if not is_initialized():
+        if n_model != 1:
+            raise ValueError(f"a model extent of {n_model} needs a process group")
+        return LOCAL
+    world, me = world_size(), rank()
+    data_ranks, model_ranks = grid_groups(world, n_model)
+    d, m = grid_position(me, n_model)
+    if n_model == 1:
+        return Grid(world, 1, d, m, dist.group.WORLD, None)
+    data_groups = [dist.new_group(r) for r in data_ranks]
+    model_groups = [dist.new_group(r) for r in model_ranks]
+    return Grid(world // n_model, n_model, d, m, data_groups[m], model_groups[d])
 
 
 def destroy() -> None:

@@ -17,11 +17,19 @@ prosody and quantizer widths; ``full`` is ``VocoderConfig()``,
 
 * ``gan``: ``--steps`` SGD steps (lr 1e-3, as the JAX parallel tests: Adam
   would amplify reduction-order noise) of :class:`GANTrainer` on seeded
-  global batches of ``--batch`` rows, each rank its contiguous block; the
-  generator, MPD and MSD after step 1 and at the end, each step's losses,
-  ms a step, peak GiB, K1 launches and (under a group of several ranks)
-  the all-reduce time of each step, per rank; ``--control`` trains again
-  with cuDNN's heuristic algorithms, for the device's run-to-run spread;
+  global batches of ``--batch`` rows; the generator (gathered whole), MPD
+  and MSD after step 1 and at the end, each step's losses, ms a step, peak
+  GiB, K1 launches and (under a data group of several ranks) the DDP
+  all-reduce time of each step, per rank; ``--control`` trains again with
+  cuDNN's heuristic algorithms, for the device's run-to-run spread.
+  ``--shard`` (the JAX dry run's): ``dp``, each rank its contiguous block of
+  rows; ``tp``, the ranks a ``data`` x ``--model`` grid, each model group
+  one block of rows and the generator's wide pair split over it (the log
+  counts the split tensors), with each rank's model-group collective time a
+  step and the largest gap between its replicated parameters and its model
+  group's first rank's; ``replicated``, every rank the whole global batch
+  and no group reduction.  Several values run in turn on the same ranks,
+  each one's arrays under ``gan/<shard>/``;
 * ``prosody``: one SGD step (lr 1e-3 over the global batch's non-pad
   tokens, as the losses are sums over them) of ``LenPredictor``,
   ``PitchPredictor`` and ``PitchPredictorBase`` from numpy-drawn weights on
@@ -162,18 +170,19 @@ def gan_batches(h, steps: int, seed: int = 2) -> List[Arrays]:
 
 class CommTimer:
     """A DDP communication hook that runs the default one (divide by the
-    world, all-reduce) and records when each bucket's all-reduce was
-    started and finished; :meth:`busy_ms` is the union of those spans."""
+    size of the group it is registered with, all-reduce over it) and records
+    when each bucket's all-reduce was started and finished; :meth:`busy_ms`
+    is the union of those spans."""
 
     def __init__(self):
         self.spans: List[List[float]] = []
 
-    def hook(self, state, bucket):
+    def hook(self, group, bucket):
         buf = bucket.buffer()
         span = [time.perf_counter(), 0.0]
         self.spans.append(span)
-        buf.div_(dist.get_world_size())
-        fut = dist.all_reduce(buf, async_op=True).get_future()
+        buf.div_(dist.get_world_size(group))
+        fut = dist.all_reduce(buf, group=group, async_op=True).get_future()
 
         def done(f):
             span[1] = time.perf_counter()
@@ -192,81 +201,133 @@ class CommTimer:
         return 1e3 * total
 
 
-def _train_gan(dev: torch.device, h, batches: List[Arrays],
+def _train_gan(dev: torch.device, h, batches: List[Arrays], grid,
                timer: Optional[CommTimer] = None, save_init: bool = False):
-    """SGD steps of a fresh :class:`GANTrainer` on this rank's rows of
-    ``batches``: (trainer, arrays of the initial, step-1 and final states,
-    losses, ms a step, all-reduce ms a step)."""
+    """SGD steps of a fresh :class:`GANTrainer` on ``grid`` (DDP over its
+    data group, the generator split over its model group), on its data
+    index's rows of ``batches``: (trainer, arrays of the initial, step-1 and
+    final states with the generator gathered whole, losses, ms a step, DDP
+    all-reduce ms a step, model-group collective ms a step)."""
     from dissc_tpu_torch.parallel.mesh import shard_rows
     from dissc_tpu_torch.train.vocoder_trainer import GANTrainer
 
-    rank, world = _rank(), _world()
-    trainer = GANTrainer(h, device=dev, seed=h.seed)  # DDP under a group
+    trainer = GANTrainer(h, device=dev, seed=h.seed, grid=grid)
     trainer.opt_g = torch.optim.SGD(trainer.gen.parameters(), lr=LR)
     trainer.opt_d = torch.optim.SGD(list(trainer.mpd.parameters())
                                     + list(trainer.msd.parameters()), lr=LR)
     if timer is not None:
         for wrapped in (trainer.gen_dp, trainer.disc_dp):
-            wrapped.register_comm_hook(None, timer.hook)
+            wrapped.register_comm_hook(trainer.group, timer.hook)
+    model_spans = trainer.time_model_comm() if grid.model_group is not None else None
     states: Arrays = {}
 
     def keep(tag: str) -> None:
-        for name in ("gen", "mpd", "msd"):
+        states.update(_host(trainer.generator_state(), f"{tag}/gen"))
+        for name in ("mpd", "msd"):
             states.update(_host(getattr(trainer, name).state_dict(), f"{tag}/{name}"))
 
     if save_init:
         keep("init")
-    losses, step_ms, comm_ms = [], [], []
+    losses, step_ms, comm_ms, model_ms = [], [], [], []
     for i, batch in enumerate(batches):
         local = {k: torch.from_numpy(v).to(dev) for k, v in
-                 shard_rows(batch, rank, world).items()}
+                 shard_rows(batch, grid.data_index, grid.n_data).items()}
         _sync(dev)
         t0 = time.perf_counter()
         m = trainer.train_step(local)
         _sync(dev)
         step_ms.append(1e3 * (time.perf_counter() - t0))
         comm_ms.append(timer.busy_ms() if timer else 0.0)
+        model_ms.append(sum(model_spans) if model_spans is not None else 0.0)
+        if model_spans is not None:
+            model_spans.clear()
         losses.append([float(v) for v in m.values()])
         if i == 0 and len(batches) > 1:
             keep("step1")
     keep("final")
     states["losses"] = np.asarray(losses, np.float64)
     states["loss_names"] = np.asarray(list(m))
-    return trainer, states, step_ms, comm_ms
+    return trainer, states, step_ms, comm_ms, model_ms
 
 
-def run_gan(dev: torch.device, args) -> Arrays:
+@torch.no_grad()
+def replicated_gap(trainer) -> float:
+    """The largest difference between this rank's replicated parameters and
+    buffers (the generator's unsplit ones, MPD, MSD) and its model group's
+    first rank's (0 without a model group)."""
+    from dissc_tpu_torch.parallel.tensor import replicated_parameters
+
+    grid = trainer.grid
+    if grid.model_group is None:
+        return 0.0
+    tensors = (replicated_parameters(trainer.gen) + list(trainer.mpd.parameters())
+               + list(trainer.msd.parameters()) + list(trainer.msd.buffers()))
+    mine = torch.cat([t.detach().reshape(-1) for t in tensors])
+    first = mine.clone()
+    dist.broadcast(first, src=grid.data_index * grid.n_model, group=grid.model_group)
+    return float((mine - first).abs().max())
+
+
+def _gan_grid(shard: str, n_model: int):
+    from dissc_tpu_torch.parallel import distributed
+
+    if shard == "replicated":
+        return distributed.LOCAL
+    return distributed.grid(n_model if shard == "tp" else 1)
+
+
+def run_gan_shard(dev: torch.device, args, shard: str) -> Arrays:
     from dissc_tpu_torch.kernels import mel_kernel
 
     h = gan_config(args.width, args.batch)
-    world, group = _world(), _group()
+    grid = _gan_grid(shard, args.model)
     batches = gan_batches(h, args.steps)
-    timer = CommTimer() if group is not None and world > 1 else None
+    timer = CommTimer() if grid.data_group is not None and grid.n_data > 1 else None
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     mel_kernel.reset_launch_counts()
-    trainer, out, step_ms, comm_ms = _train_gan(dev, h, batches, timer, args.save_init)
+    trainer, out, step_ms, comm_ms, model_ms = _train_gan(dev, h, batches, grid, timer,
+                                                          args.save_init)
+    if trainer.sharded:
+        _log(f"gan/{shard}: grid ({grid.n_data}, {grid.n_model}), tensor-sharding "
+             f"{len(trainer.sharded)} wide generator kernels over 'model' "
+             f"({', '.join(trainer.sharded)}); grads mean over 'data', the replicated ones "
+             "over 'model' too")
+    gap = replicated_gap(trainer)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
-    per_rank = _gather({"ms": step_ms, "comm_ms": comm_ms, "peak_gib": peak,
-                        "k1": mel_kernel.launch_counts["mel_spectrogram"]})
+    per_rank = _gather({"ms": step_ms, "comm_ms": comm_ms, "model_ms": model_ms,
+                        "peak_gib": peak, "k1": mel_kernel.launch_counts["mel_spectrogram"],
+                        "gap": gap})
     out.update({
         "ms_per_step": np.asarray([r["ms"] for r in per_rank]),
         "allreduce_ms": np.asarray([r["comm_ms"] for r in per_rank]),
+        "model_comm_ms": np.asarray([r["model_ms"] for r in per_rank]),
         "peak_gib": np.asarray([r["peak_gib"] for r in per_rank]),
         "k1_launches": np.asarray([r["k1"] for r in per_rank]),
+        "replicated_gap": np.asarray([r["gap"] for r in per_rank]),
+        "sharded": np.asarray(trainer.sharded, dtype=str),
         **{f"batch0/{k}": v for k, v in batches[0].items()},
     })
-    _log(f"gan {args.width} b{h.batch_size} W{world}: losses {out['losses'][-1].tolist()} "
-         f"ms/step {step_ms}")
+    _log(f"gan/{shard} {args.width} b{h.batch_size} grid ({grid.n_data}, {grid.n_model}): "
+         f"losses {out['losses'][-1].tolist()} ms/step {step_ms}")
     if args.control:
         # the same steps again with cuDNN's own choice of algorithms: how far
         # apart two runs of one world land on this device
         del trainer
         _card_math(False)
-        _, control, _, _ = _train_gan(dev, h, batches)
+        _, control, _, _, _ = _train_gan(dev, h, batches, grid)
         _card_math(args.deterministic)
         out.update({f"control/{k}": v for k, v in control.items()
                     if k.startswith("final/") or k == "losses"})
+    return out
+
+
+def run_gan(dev: torch.device, args) -> Arrays:
+    if len(args.shard) == 1:
+        return run_gan_shard(dev, args, args.shard[0])
+    out: Arrays = {}
+    for shard in args.shard:
+        out.update({f"{shard}/{k}": v for k, v in run_gan_shard(dev, args, shard).items()})
     return out
 
 
@@ -581,6 +642,12 @@ def main(argv=None) -> int:
     parser.add_argument("--step-batch", type=int, default=8,
                         help="the global batch of the prosody and vq phases")
     parser.add_argument("--steps", type=int, default=1, help="gan: train steps")
+    parser.add_argument("--shard", nargs="+", default=["dp"],
+                        choices=["dp", "tp", "replicated"],
+                        help="gan: data parallel; tensor parallel over a data x --model "
+                             "grid; or every rank the whole batch, nothing reduced")
+    parser.add_argument("--model", type=int, default=1,
+                        help="gan --shard tp: the model extent (it divides --world)")
     parser.add_argument("--save-init", action="store_true",
                         help="gan: write the initial weights too")
     parser.add_argument("--dtype", default="float32", choices=["float32", "float64"],
@@ -593,6 +660,10 @@ def main(argv=None) -> int:
                              "steps repeat bit for bit")
     parser.add_argument("--out", default=None, help="npz file for rank 0's arrays")
     args = parser.parse_args(argv)
+    if args.model < 1 or args.world % args.model:
+        parser.error(f"--model {args.model} does not divide --world {args.world}")
+    if args.model > 1 and "tp" not in args.shard:
+        parser.error("--model above 1 takes --shard tp")
     if args.device == "cuda":
         _card_math(args.deterministic)
     if args.phase == ["multiproc-worker"]:

@@ -1,9 +1,14 @@
 """How a batch is divided over ranks and cards (``dissc_tpu.parallel.mesh``).
 
-Training: :func:`world_for_batch` is ``mesh_for_batch``'s rule (the
-largest device count up to the cards present that divides the global
-batch), and :func:`shard_rows` gives a rank its contiguous block of the
-global batch's rows, as GSPMD lays out a ``P("data")`` batch.
+Training: the ranks form a ``data`` x ``model`` grid, laid out as
+``create_mesh`` lays its devices out (``reshape(n_data, n_model)``): rank
+``r`` sits at ``(data_index, model_index) = divmod(r, n_model)``
+(:func:`grid_position`, :func:`grid_groups`).  :func:`world_for_batch` is
+``mesh_for_batch``'s rule (the data extent is the largest count that
+divides the global batch, over the cards present divided by ``n_model``),
+and :func:`shard_rows` gives a data index its contiguous block of the
+global batch's rows, as GSPMD lays out a ``P("data")`` batch: every rank of
+a model group holds the same rows.
 
 Serving: :func:`split_for_devices` pads a batch to a multiple of the
 device count by repeating its last row and splits it into contiguous
@@ -20,9 +25,28 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 
-def world_for_batch(batch_size: int, n_devices: int) -> int:
-    """The largest count ``<= n_devices`` (at least 1) that divides ``batch_size``."""
-    return max(d for d in range(1, max(n_devices, 1) + 1) if batch_size % d == 0)
+def world_for_batch(batch_size: int, n_devices: int, n_model: int = 1) -> int:
+    """The ranks of a ``data`` x ``n_model`` grid over at most ``n_devices``:
+    ``n_model`` times the largest data extent ``<= n_devices // n_model``
+    (at least 1) that divides ``batch_size``."""
+    avail = max(n_devices // n_model, 1)
+    return n_model * max(d for d in range(1, avail + 1) if batch_size % d == 0)
+
+
+def grid_position(rank: int, n_model: int) -> Tuple[int, int]:
+    """``(data_index, model_index)`` of ``rank`` in the grid."""
+    return divmod(rank, n_model)
+
+
+def grid_groups(world: int, n_model: int) -> Tuple[List[List[int]], List[List[int]]]:
+    """(the data groups: the ranks that share a model index, one list per
+    model index; the model groups: the ranks that share a data index, one
+    list per data index), each in rank order."""
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"a model extent of {n_model} does not divide {world} ranks")
+    n_data = world // n_model
+    return ([[d * n_model + m for d in range(n_data)] for m in range(n_model)],
+            [[d * n_model + m for m in range(n_model)] for d in range(n_data)])
 
 
 def local_batch_slice(global_batch: int, world: int) -> int:
@@ -34,9 +58,10 @@ def local_batch_slice(global_batch: int, world: int) -> int:
 
 
 def shard_rows(batch: Any, rank: int, world: int) -> Any:
-    """Rank ``rank``'s contiguous block of rows of every array or tensor in
-    ``batch`` (a dict, tuple or list of them, or one), whose leading
-    dimension is the global batch."""
+    """Block ``rank`` of ``world`` contiguous blocks of rows of every array or
+    tensor in ``batch`` (a dict, tuple or list of them, or one), whose
+    leading dimension is the global batch.  On a grid, ``rank`` is the data
+    index and ``world`` the data extent."""
     if isinstance(batch, dict):
         return {k: shard_rows(v, rank, world) for k, v in batch.items()}
     if isinstance(batch, (tuple, list)):

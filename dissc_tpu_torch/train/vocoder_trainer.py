@@ -54,6 +54,23 @@ one-device ``steps_per_epoch`` and learning-rate schedule, and leaves the
 split) to rank 0.  Checkpoints hold the unwrapped modules, so their layout
 is the same at any W.
 
+The ``model`` axis (the JAX dry run's ``--shard tp``): given a
+:class:`~dissc_tpu_torch.parallel.distributed.Grid` of several model ranks,
+:class:`GANTrainer` splits the generator's ``conv_pre``/``ups.0`` pair over
+the model group (:mod:`~dissc_tpu_torch.parallel.tensor`), so its AdamW
+state holds only the rank's slices; DDP runs over the data group; every
+rank of a model group trains on the same rows, and the gradients of the
+parameters they all hold whole (the rest of the generator, MPD and MSD) are
+averaged over the model group after each backward, so those parameters
+stay bit-identical on the group.  :meth:`GANTrainer.generator_state`
+gathers the full generator, which the checkpoints hold.
+
+``msd_fused_gstep`` runs the G step's MSD through
+:func:`~dissc_tpu_torch.models.msd_fused.msd_g_apply` (the JAX step's
+``vocoder_trainer.py:182-191``): the same forward from weights folded
+outside it, a backward for the waveform alone that keeps no pre-activation
+maps.
+
 Reference behaviour mirrored on purpose: there is no VQ commit loss in
 the vocoder trainer (the config refuses the VQ paths).
 """
@@ -69,7 +86,6 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn as nn
 from torch.nn.parallel import DistributedDataParallel
 
@@ -86,7 +102,8 @@ from dissc_tpu_torch.losses.gan import discriminator_loss, feature_loss, generat
 from dissc_tpu_torch.models.discriminators import (MultiPeriodDiscriminator,
                                                    MultiScaleDiscriminator)
 from dissc_tpu_torch.models.hifigan import CodeGenerator, refuse_f0_vq
-from dissc_tpu_torch.parallel import distributed
+from dissc_tpu_torch.models.msd_fused import fold_msd_weights, msd_g_apply
+from dissc_tpu_torch.parallel import distributed, tensor
 from dissc_tpu_torch.parallel.collectives import pmean_if
 from dissc_tpu_torch.parallel.mesh import local_batch_slice
 from dissc_tpu_torch.train.checkpoints import (load_checkpoint, save_checkpoint,
@@ -168,21 +185,30 @@ class GANTrainer:
     the constant ``h.learning_rate``.  Each optimizer always holds the rate
     of its next update.
 
-    Under a process group the step runs DDP over its ranks: ``gen``,
-    ``mpd`` and ``msd`` stay the unwrapped modules; ``gen_dp`` and
-    ``disc_dp`` are what the step's forwards call (the DDP wrappers, or
-    the modules themselves without a group).  The losses it returns are
-    then the means over the ranks.
+    ``grid`` places the trainer on the ranks' ``data`` x ``model`` grid
+    (:func:`~dissc_tpu_torch.parallel.distributed.grid`; ``None``: the whole
+    process group as the data axis, or one process without a group;
+    ``distributed.LOCAL``: no group even under one).  Under a data group the
+    step runs DDP over it: ``gen``, ``mpd`` and ``msd`` stay the unwrapped
+    modules; ``gen_dp`` and ``disc_dp`` are what the step's forwards call
+    (the DDP wrappers, or the modules themselves without a group).  The
+    losses it returns are then the means over the data group.  Under a
+    model group ``gen`` holds this rank's slices of the split layers.
     """
 
     def __init__(self, h: VocoderConfig, device: DeviceLike = None,
-                 seed: Optional[int] = None, steps_per_epoch: Optional[int] = None):
+                 seed: Optional[int] = None, steps_per_epoch: Optional[int] = None,
+                 grid: Optional[distributed.Grid] = None):
         refuse_f0_vq(h, "GANTrainer")
         self.h = h
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
         self.gen, self.mpd, self.msd = (m.to(self.device) for m in make_models(h, seed))
-        self.group = dist.group.WORLD if distributed.is_initialized() else None
+        self.grid = distributed.grid() if grid is None else grid
+        self.group, self.model_group = self.grid.data_group, self.grid.model_group
+        self.sharded = tensor.shard_generator(self.gen, self.model_group) if (
+            self.model_group is not None) else []
+        self.model_comm_ms: Optional[list] = None  # model-group collectives' ms, when set
         self.gen_dp: nn.Module = self.gen
         self.disc_dp: nn.Module = Discriminators(self.mpd, self.msd)
         if self.group is not None:
@@ -205,6 +231,26 @@ class GANTrainer:
             for group in opt.param_groups:
                 group["lr"] = lr
 
+    def time_model_comm(self) -> list:
+        """Record the ms of every model-group collective from here on (the
+        device synchronised around each) into the returned list."""
+        self.model_comm_ms = []
+        tensor.record_comm(self.gen, self.model_comm_ms)
+        return self.model_comm_ms
+
+    def _average_over_model(self, *modules: nn.Module) -> None:
+        if self.model_group is not None:
+            params = [p for m in modules for p in tensor.replicated_parameters(m)]
+            tensor.average_grads(params, self.model_group, self.model_comm_ms)
+
+    def _msd_g(self, y: torch.Tensor, y_hat: torch.Tensor):
+        """The G step's MSD: the module, or its fused stack (``msd_fused_gstep``)."""
+        if not self.h.msd_fused_gstep:
+            return self.msd(y, y_hat)
+        weights = fold_msd_weights(self.msd, train=True,
+                                   dtype=resolve_dtype(self.h.disc_compute_dtype))
+        return msd_g_apply(weights, y, y_hat)
+
     def _inputs(self, batch: Batch):
         get = lambda k: None if batch.get(k) is None else batch[k].to(self.device)
         return get("code"), get("f0") if self.h.f0 else None, get("spkr"), get("audio")
@@ -223,6 +269,7 @@ class GANTrainer:
         d_loss = discriminator_loss(p_rs, p_gs)[0] + discriminator_loss(s_rs, s_gs)[0]
         self.opt_d.zero_grad(set_to_none=True)
         d_loss.backward()
+        self._average_over_model(self.mpd, self.msd)
         self.opt_d.step()
 
         # G step against the updated discriminators, called unwrapped: their
@@ -232,12 +279,13 @@ class GANTrainer:
         loss_mel = torch.mean(torch.abs(y_mel - self.mel_fn(y_g_hat))) * 45.0
         with _frozen(self.mpd, self.msd):
             _, p_gs, p_fr, p_fg = self.mpd(y, y_g_hat)
-            _, s_gs, s_fr, s_fg = self.msd(y, y_g_hat)
+            _, s_gs, s_fr, s_fg = self._msd_g(y, y_g_hat)
             loss_fm = feature_loss(p_fr, p_fg) + feature_loss(s_fr, s_fg)
             loss_adv = generator_loss(p_gs)[0] + generator_loss(s_gs)[0]
             g_loss = loss_adv + loss_fm + loss_mel
             self.opt_g.zero_grad(set_to_none=True)
             g_loss.backward()
+        self._average_over_model(self.gen)
         self.opt_g.step()
         self.step += 1
         self._set_lr()
@@ -259,9 +307,15 @@ class GANTrainer:
 
     # ---- checkpoints: the JAX package's g_/do_ layout -------------------
 
+    def generator_state(self) -> Dict[str, torch.Tensor]:
+        """The full generator's state dict; under a model group the split
+        tensors are gathered over it (every rank of the group calls this)."""
+        return tensor.gather_generator_state(self.gen)
+
     def save(self, checkpoint_path: str, epoch: int) -> None:
-        """Write ``g_<step>`` and ``do_<step>``."""
-        gen_tree = generator_tree(self.gen.state_dict(), self.h)
+        """Write ``g_<step>`` and ``do_<step>`` (under a model group, every
+        rank of it calls this: the generator is gathered)."""
+        gen_tree = generator_tree(self.generator_state(), self.h)
         save_checkpoint(os.path.join(checkpoint_path, step_checkpoint_name("g_", self.step)),
                         {"generator": gen_tree})
         msd_params, msd_spectral = msd_trees(self.msd.state_dict())

@@ -2,6 +2,7 @@
 numpy and scipy (no ``transformers``, ``pandas``, ``safetensors``,
 ``tensorboardX`` or ``matplotlib``: the card's machine has none of them),
 no silent CPU run, and no silent switch away from the native loaders."""
+import copy
 import os
 import pkgutil
 import subprocess
@@ -35,7 +36,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package(tmp_path):
                  "models.kmeans", "eval.sv", "cli.eval_sv", "cli.convert_eval_sv",
                  "train.quantizer_trainer", "compat.torch_import", "compat.from_jax",
                  "parallel.distributed", "parallel.collectives", "parallel.mesh",
-                 "parallel.dryrun", "core.masking", "utils", "utils.profiling", "ops"):
+                 "parallel.dryrun", "core.masking", "utils", "utils.profiling", "ops",
+                 "parallel.tensor", "models.msd_fused"):
         assert f"dissc_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -206,3 +208,26 @@ def test_config_accepts_tpu_lowering_knobs_and_reads_reference_json(tmp_path):
     path.write_text('{"upsample_initial_channel": 256, "f0_feats": true, "unknown": 1}')
     assert load_config(str(path)).upsample_initial_channel == 256
     assert VocoderConfig.from_json(str(path)).upsample_initial_channel == 256
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_msd_fused_gstep_reaches_the_fused_path(fused, monkeypatch):
+    """The other lowering knobs stay ignored (above); ``msd_fused_gstep``
+    runs the G step's MSD through ``models/msd_fused.py``."""
+    from types import SimpleNamespace
+
+    from dissc_tpu_torch.models.discriminators import MultiScaleDiscriminator
+    from dissc_tpu_torch.train import vocoder_trainer
+
+    calls = []
+    real = vocoder_trainer.msd_g_apply
+    monkeypatch.setattr(vocoder_trainer, "msd_g_apply",
+                        lambda *a: calls.append(1) or real(*a))
+    h = VocoderConfig(msd_fused_gstep=fused, disc_s2d=True)
+    msd = MultiScaleDiscriminator(1, generator=torch.Generator().manual_seed(0))
+    y, y_hat = torch.randn(2, 2, 256, generator=torch.Generator().manual_seed(1))
+    ref = copy.deepcopy(msd)(y, y_hat)
+    out = vocoder_trainer.GANTrainer._msd_g(SimpleNamespace(h=h, msd=msd), y, y_hat)
+    assert calls == ([1] if fused else [])
+    for a, b in zip(ref[1] + ref[3][0], out[1] + out[3][0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
